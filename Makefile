@@ -3,7 +3,7 @@
 
 CPU_ENV = JAX_PLATFORM_NAME=cpu JAX_PLATFORMS=cpu
 
-.PHONY: test native bench bench-smoke smoke tpu-smoke datasets clean
+.PHONY: test native bench smoke chip-smoke datasets clean
 
 # Synthetic exports of the three reference datasets at published scale
 # (SURVEY.md §2.4 stats), in the reference's exact on-disk format. The
@@ -18,10 +18,10 @@ datasets:
 	    'last-fm': (23566, 48123, 58266, 9, 3034796, 464567), \
 	    'yelp2018': (45919, 45538, 90961, 42, 1185068, 1853704)}.items()]"
 
-# Mosaic-compile every Pallas kernel (fwd+bwd) + pallas-in-shard_map on a
-# real chip — the coverage CPU CI structurally cannot provide.
-tpu-smoke:
-	python tpu_smoke.py
+# On a GPU: compile and check the SpMM kernel at yelp scale, train one
+# epoch and serve from its checkpoint (exits nonzero without a GPU).
+chip-smoke:
+	python chip_smoke.py
 
 test:
 	python -m pytest tests/ -q
@@ -31,9 +31,6 @@ native:
 
 bench:
 	python bench.py
-
-bench-smoke:
-	$(CPU_ENV) python bench.py --preset smoke --iters 3 --backend ref
 
 smoke:
 	$(CPU_ENV) python -m kgat_tpu.train --preset smoke-gcn --epochs 10 \

@@ -1,12 +1,13 @@
-"""kgat_tpu — a TPU-native message-passing framework for the KGAT model family.
+"""kgat_tpu — a message-passing framework for the KGAT model family in JAX.
 
-Built from scratch for TPU (JAX/XLA/Pallas/pjit), with the capabilities of the
-reference repo ``jennyzhang0215/DGL-KGAT`` (a DGL/PyTorch implementation of
-KGAT, Wang et al., KDD 2019, arXiv:1905.07854). See SURVEY.md for the layer
-map and the parity spec this package implements.
+Built from scratch on JAX (XLA, Pallas on Triton, shard_map), with the
+capabilities of the reference repo ``jennyzhang0215/DGL-KGAT`` (a
+DGL/PyTorch implementation of KGAT, Wang et al., KDD 2019,
+arXiv:1905.07854). See SURVEY.md for the layer map and the parity spec
+this package implements.
 
-Layer map (SURVEY.md §1, TPU-native restatement):
-  kernels   -> kgat_tpu.ops            (XLA reference path + Pallas kernels)
+Layer map (SURVEY.md §1, restated):
+  kernels   -> kgat_tpu.ops            (XLA reference path + GPU SpMM kernel)
   graph     -> kgat_tpu.graph          (padded COO/CSR pytree, host builder)
   data      -> kgat_tpu.data           (dataset loaders, CKG construction)
   sampling  -> kgat_tpu.sampler        (host + device-side BPR/KG negatives)

@@ -1,6 +1,6 @@
 """Data layer: dataset loaders, CKG construction, and synthetic data.
 
-TPU-native counterpart of the reference's data loader (SURVEY.md §2.1,
+Counterpart of the reference's data loader (SURVEY.md §2.1,
 `jennyzhang0215/DGL-KGAT` dataloader.py — reconstructed, mount empty).
 File formats (SURVEY.md §2.4, original KGAT release):
 
@@ -66,7 +66,6 @@ class Dataset:
         return len(self.kg_triples)
 
     def build(self, *, edge_block: int = 2048, rel_block: int = 1024,
-              chunk_edges: "int | None" = None,
               cache_dir: "str | None" = None) -> Tuple[Graph, CKGMeta]:
         """Construct the collaborative knowledge graph from train CF + KG.
 
@@ -75,12 +74,6 @@ class Dataset:
         runs on the same inputs skip the host build (the DGL-format-cache
         analog, SURVEY.md §2.2 graph-index row).
         """
-        from kgat_tpu.graph import ALIGN_CHUNK_EDGES
-        # Canonicalize before hashing: None means the default chunk size,
-        # so build(None) and build(ALIGN_CHUNK_EDGES) must share one cache
-        # entry (ADVICE r3).
-        chunk_edges = (ALIGN_CHUNK_EDGES if chunk_edges is None
-                       else chunk_edges)
         if cache_dir is not None:
             import hashlib
 
@@ -91,7 +84,7 @@ class Dataset:
             h.update(np.ascontiguousarray(self.kg_triples).tobytes())
             h.update(repr((self.n_users, self.n_entities, self.n_items,
                            self.n_relations_kg, edge_block, rel_block,
-                           chunk_edges, GRAPH_CACHE_VERSION)).encode())
+                           GRAPH_CACHE_VERSION)).encode())
             path = os.path.join(cache_dir, f"ckg-{h.hexdigest()[:16]}.npz")
             if os.path.exists(path):
                 import zipfile
@@ -113,14 +106,9 @@ class Dataset:
             n_users=self.n_users, n_entities=self.n_entities,
             n_items=self.n_items, n_relations_kg=self.n_relations_kg,
             edge_block=edge_block, rel_block=rel_block,
-            chunk_edges=chunk_edges,
         )
         if cache_dir is not None:
-            # Pre-build the coalesced layouts so the cache carries them —
-            # the production SpMM reduces over them every run, and without
-            # this the host rebuilt them from scratch on every start.
-            from kgat_tpu.graph import LAST_BUILD_STAGES, build_coalesced
-            build_coalesced(g)
+            from kgat_tpu.graph import LAST_BUILD_STAGES
             os.makedirs(cache_dir, exist_ok=True)
             save_graph(path, g, meta)
             LAST_BUILD_STAGES["graph_cache"] = "cold"

@@ -4,7 +4,7 @@ Reference semantics (SURVEY.md §3.5): for each block of test users, score
 U_block @ I^T over the *final concatenated* representations, mask the user's
 train items to -inf, take top-K, compute metrics.
 
-TPU-native shape discipline: user blocks are a static size; each user's
+Shape discipline: user blocks are a static size; each user's
 train/test item lists are flattened into (block, max_pairs, 2) padded int
 arrays on the host once, so the whole evaluation is one jitted `lax.scan`
 over blocks — no per-user host round trips (the reference does numpy topk

@@ -9,7 +9,7 @@ module closes the loop so the full paper recipe runs end-to-end here:
     python -m kgat_tpu.models.bprmf --dataset amazon-book --out mf.npz
     python -m kgat_tpu.train --dataset amazon-book --use-pretrain mf.npz
 
-TPU-native shape: the whole training phase is a chunked ``lax.scan`` of
+Device-resident shape: the whole training phase is a chunked ``lax.scan`` of
 (device-side BPR sampling, score, Adam) steps — no host round trips, same
 structure as the KGAT trainer's device-resident epochs.
 """

@@ -16,20 +16,21 @@ next layer; the L2-*normalized* copy goes into the concat list; the initial
 embedding enters the concat unnormalized.
 
 Everything is a pure function over a params dict; no framework state. The
-message-passing backend (XLA reference path or Pallas kernels) is a static
-argument, so one model body serves both.
+message-passing backend (XLA reference path or the GPU SpMM kernel) is
+resolved from the platform at trace time, so one model body serves both.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 
 from kgat_tpu.graph import CKGMeta, Graph
-from kgat_tpu.ops import get_backend
+from kgat_tpu.ops import get_backend, resolve_backend
 
 Params = Dict[str, Any]
 
@@ -46,31 +47,14 @@ class KGATConfig:
     leaky_relu_slope: float = 0.2       # TF original's default alpha
     reg_cf: float = 1e-5
     reg_kg: float = 1e-5
-    ops_backend: str = "ref"            # ref | pallas
+    # ref | pallas; None = the platform's own (ops.resolve_backend).
+    ops_backend: Any = None
+    # Run the pallas kernels in the Pallas interpreter (CPU tests).
+    interpret: bool = False
     dtype: Any = jnp.float32
     # SpMM value-stream dtype on the pallas backend (None = keep f32).
-    # bf16 halves the gather+reduce HBM traffic — the step-time bottleneck;
-    # accumulation stays f32 on the MXU (~1e-3 rel activation noise).
+    # bf16 halves the bytes the kernel gathers; it accumulates in f32.
     compute_dtype: Any = None
-    # Attention logits route on the pallas backend: 'auto' (dense
-    # projected tables when they fit in HBM, else the relation-blocked
-    # SDDMM kernel), 'dense', or 'relblock'. See
-    # pallas_backend.attention_logits_fwd.
-    att_impl: str = "auto"
-    # Dense-route projected-table dtype (None = f32; bf16 halves the
-    # table build/gather HBM traffic at ~1e-2 relative logit noise).
-    att_table_dtype: Any = None
-    # Coalesce multi-edges for the SpMM hot loop (pallas backend,
-    # single-device path): distinct (dst, src) pairs reduce once with
-    # summed weights — ~20-28% fewer gather rows at reference scale for
-    # one extra static take per epoch in staging. See
-    # pallas_backend.coalesce_weights / graph.build_coalesced.
-    coalesce: bool = True
-    # Max members per coalesced group (longer multi-edge runs split).
-    # 8 covers all but 27.8k of yelp's 3.62M distinct pairs; 32 would
-    # recover ~1.7% more rows for +24 shifted adds once per epoch
-    # (ROADMAP r4 measurement).
-    coalesce_cap: int = 8
 
     @property
     def out_dim(self) -> int:
@@ -142,12 +126,8 @@ def attention_logits(params: Params, graph: Graph,
 
     Relation-blocked: each relation's edges are a static, padded contiguous
     block of ``graph.att_gather`` (SURVEY.md §3.2 loops over relations the
-    same way; here each block is two fixed-shape matmuls on the MXU).
-    The pallas backend fuses all relations into one kernel launch.
+    same way; here each block is two fixed-shape matmuls).
     """
-    if cfg.ops_backend == "pallas":
-        from kgat_tpu.ops import pallas_backend
-        return pallas_backend.attention_logits(params, graph, cfg)
     emb = params["entity_embed"]
     dst = jnp.minimum(graph.dst, graph.n_nodes - 1)  # clamp sentinel
     att_logits_parts = []
@@ -156,8 +136,8 @@ def attention_logits(params: Params, graph: Graph,
         e_h = emb[dst[idx]]                      # (B, d) heads
         e_t = emb[graph.src[idx]]                # (B, d) tails
         w_r = params["w_rel"][r]                 # (d, k)
-        # HIGHEST: the ref path is the precision oracle; TPU's DEFAULT
-        # f32 dot is a single bf16 pass (~1e-2 abs on these logits).
+        # HIGHEST: the logits feed a softmax over up to thousands of
+        # edges; a GPU's default f32 dot may run in TF32 (~1e-3 relative).
         proj_h = jnp.dot(e_h, w_r, preferred_element_type=jnp.float32,
                          precision=jax.lax.Precision.HIGHEST)
         proj_t = jnp.dot(e_t, w_r, preferred_element_type=jnp.float32,
@@ -184,32 +164,21 @@ def compute_attention(params: Params, graph: Graph, cfg: KGATConfig) -> jax.Arra
 def prepare_attention(graph: Graph, att: jax.Array, cfg: KGATConfig):
     """Pre-stage cached attention for the hot loop.
 
-    On the pallas backend this pre-gathers the weights into both aligned
-    SpMM layouts once per epoch (the aligned scalar gather costs more than
-    the reduce kernel itself); on the ref backend it is the identity.
+    On the pallas backend this stages the masked weights in both SpMM
+    orders (canonical and reverse) once per epoch; on the ref backend it is
+    the identity.
     """
-    if cfg.ops_backend == "pallas":
+    if resolve_backend(cfg.ops_backend) == "pallas":
         from kgat_tpu.ops import pallas_backend
-        return pallas_backend.prepare_weights(
-            graph, att, dtype=cfg.compute_dtype,
-            packs=pallas_backend.packs_for(cfg),
-            coalesce=getattr(cfg, "coalesce", False),
-            cap=getattr(cfg, "coalesce_cap", 8))
+        return pallas_backend.prepare_weights(graph, att)
     return att
 
 
 def attention_for_training(params: Params, graph: Graph, cfg: KGATConfig):
-    """Per-epoch attention recompute, no grad, pre-staged for the hot loop.
-
-    The pallas backend runs the fully fused pipeline (logits scattered
-    straight into the aligned layout, Pallas segment softmax there — no
-    canonical-order round trip); ref returns canonical weights.
-    """
-    if cfg.ops_backend == "pallas":
-        from kgat_tpu.ops import pallas_backend
-        return jax.lax.stop_gradient(
-            pallas_backend.attention_prepared(params, graph, cfg))
-    return jax.lax.stop_gradient(compute_attention(params, graph, cfg))
+    """Per-epoch attention recompute, no grad, pre-staged for the hot loop
+    (see prepare_attention)."""
+    return jax.lax.stop_gradient(prepare_attention(
+        graph, compute_attention(params, graph, cfg), cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +193,14 @@ def _l2norm(x, eps=1e-12):
     return x / jnp.sqrt(jnp.maximum(jnp.sum(x * x, axis=-1, keepdims=True), eps))
 
 
+def _spmm(cfg: KGATConfig):
+    """The SpMM of the config's resolved backend."""
+    ops = get_backend(cfg.ops_backend)
+    if resolve_backend(cfg.ops_backend) == "pallas":
+        return functools.partial(ops.spmm, interpret=cfg.interpret)
+    return ops.spmm
+
+
 def propagate(params: Params, graph: Graph, edge_att: jax.Array,
               cfg: KGATConfig, *, rng: jax.Array | None = None,
               train: bool = False) -> jax.Array:
@@ -231,13 +208,14 @@ def propagate(params: Params, graph: Graph, edge_att: jax.Array,
 
     SpMM per layer: e_N(h) = sum_{(h,r,t)} att(h,r,t) * e_t  (edges t -> h).
     """
-    ops = get_backend(cfg.ops_backend)
-    low = cfg.compute_dtype if cfg.ops_backend == "pallas" else None
+    spmm = _spmm(cfg)
+    low = (cfg.compute_dtype
+           if resolve_backend(cfg.ops_backend) == "pallas" else None)
     ego = params["entity_embed"]
     outs = [ego]
     for li, layer in enumerate(params["layers"]):
         x_in = ego if low is None else ego.astype(low)
-        side = ops.spmm(graph, edge_att, x_in)
+        side = spmm(graph, edge_att, x_in)
         if cfg.aggregator == "gcn":
             ego = _leaky((ego + side) @ layer["w"] + layer["b"],
                          cfg.leaky_relu_slope)

@@ -1,9 +1,9 @@
 // Native host-side graph tooling for kgat_tpu.
 //
-// TPU-native counterpart of DGL's C++ graph-index layer (SURVEY.md §2.2:
+// Counterpart of DGL's C++ graph-index layer (SURVEY.md §2.2:
 // `src/graph/unit_graph.cc` COO/CSR storage + format conversion — the
 // reference stack's native components; locations reconstructed, the
-// reference mount was empty). On TPU the *device* side of the graph is a
+// reference mount was empty). Here the *device* side of the graph is a
 // pytree of arrays (kgat_tpu/graph.py) consumed by XLA/Pallas, so the
 // native layer's job is the host side: parsing multi-GB dataset text files
 // and building the sorted/CSR/aligned edge layouts fast. Everything here

@@ -1,29 +1,42 @@
-"""Message-passing ops: XLA reference path and Pallas TPU kernels.
+"""Message-passing ops: the XLA reference path and the GPU SpMM kernel.
 
-TPU-native replacement for DGL's native kernel core (SURVEY.md §2.2:
-g-SpMM `src/array/cuda/spmm.cu`, g-SDDMM `src/array/cuda/sddmm.cu`,
-edge-softmax `python/dgl/ops/edge_softmax.py`, segment-reduce
+Replacement for DGL's native kernel core (SURVEY.md §2.2: g-SpMM
+`src/array/cuda/spmm.cu`, g-SDDMM `src/array/cuda/sddmm.cu`, edge-softmax
+`python/dgl/ops/edge_softmax.py`, segment-reduce
 `src/array/*/segment_reduce.*` — all reconstructed locations, mount empty).
 
-Two interchangeable backends:
-  * ``kgat_tpu.ops.ref``    — pure jnp/segment_sum implementations; the
-    correctness oracle and the CPU/debug path.
-  * ``kgat_tpu.ops.pallas`` — hand-written Pallas kernels for the hot ops,
-    each with a custom VJP mirroring DGL's dual-op autograd structure
-    (SpMM backward == SDDMM on the reversed graph and vice versa).
+Two interchangeable backends with one surface (spmm / gspmm /
+segment_softmax / sddmm_dot / segment_*):
+  * ``ref``    — pure jnp/segment_sum implementations; the correctness
+    oracle and the path on platforms without the kernel.
+  * ``pallas`` — the CSR SpMM kernel (Pallas on Triton) for the GPU, with
+    a custom VJP mirroring DGL's dual-op autograd structure (SpMM backward
+    == SpMM on the reversed graph + an SDDMM for the weights); every other
+    op is the reference one.
 
-``get_backend(name)`` returns a namespace with a uniform surface:
-  spmm(graph, edge_w, x) / segment_softmax(graph, logits) /
-  sddmm_dot(graph, a, b).
+The model picks the backend from the platform (:func:`resolve_backend`),
+not from a user flag.
 """
+
+import jax
 
 from kgat_tpu.ops import ref as _ref
 
+BACKENDS = ("ref", "pallas")
 
-def get_backend(name: str = "ref"):
-    if name == "ref":
-        return _ref
-    if name == "pallas":
+
+def resolve_backend(name: "str | None" = None) -> str:
+    """The ops backend to use: ``name`` when given, else the platform's
+    own — the kernel on the GPU, the reference everywhere else."""
+    if name is None:
+        return "pallas" if jax.default_backend() == "gpu" else "ref"
+    if name not in BACKENDS:
+        raise ValueError(f"unknown ops backend: {name!r}")
+    return name
+
+
+def get_backend(name: "str | None" = None):
+    if resolve_backend(name) == "pallas":
         from kgat_tpu.ops import pallas_backend as _pb
         return _pb
-    raise ValueError(f"unknown ops backend: {name!r}")
+    return _ref

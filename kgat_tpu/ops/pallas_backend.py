@@ -1,34 +1,43 @@
-"""`pallas` ops backend: Pallas kernels with the ref-path interface.
+"""`pallas` ops backend: a CSR SpMM kernel for the GPU (Pallas on Triton).
 
-Autograd mirrors DGL's dual-op structure (SURVEY.md §2.2 autograd row):
-SpMM backward w.r.t. features is a segment-sum on the REVERSE graph
-(src-sorted view precomputed in the Graph), backward w.r.t. edge weights is
-an SDDMM (per-edge row dot). Both directions run the same Pallas
-segment-sum kernel.
+The SpMM ``out[v] = sum_{(u -> v)} w_e * x[u]`` is the hot loop of KGAT
+training: every CF step runs it forward and backward once per layer over
+the whole CKG. It is a weighted row gather with no data reuse beyond the
+feature table, so it is bound by memory traffic, not arithmetic. XLA's
+plain version (``ops.ref.spmm``) materialises the (E, d) message array and
+scatter-adds it; this kernel reads each source row straight into registers
+and accumulates in float32, writing only per-piece partial sums.
 
-Attention runs entirely in aligned layouts: the relation-blocked Pallas
-SDDMM (kernels/sddmm.py) produces logits, one scatter routes them into the
-forward-aligned order, and the fused Pallas segment softmax
-(kernels/softmax.py) normalizes there — see :func:`attention_prepared`.
-The module-level ``segment_softmax`` export below is the canonical-order
-*parity API* (used by tests and the ref-path comparison); the hot path
-never goes through canonical order.
+Work split: the graph cuts every CSR row into pieces of at most
+``graph.PIECE_EDGES`` positions (:class:`kgat_tpu.graph.RowPieces`). One
+kernel program owns ``BLOCK_PIECES`` consecutive pieces, one per tile row;
+step ``k`` of its loop gathers position ``k`` of every piece at once, so a
+hub row spreads over many lanes and programs instead of serializing one.
+The pieces' partial sums are added per row by a sorted ``segment_sum`` over
+the (few) pieces — no atomics, no per-edge message array.
+
+Autograd mirrors DGL's dual-op structure (SURVEY.md §2.2 autograd row): the
+feature gradient is the same kernel on the REVERSE graph (the src-sorted
+view the Graph carries), the weight gradient a per-edge row dot (SDDMM).
+
+The kernel is compiled for the GPU; ``interpret=True`` runs it in the
+Pallas interpreter instead, which is how the CPU tests exercise it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from kgat_tpu.graph import Graph
+from kgat_tpu.graph import Graph, RowPieces
 from kgat_tpu.ops import ref as _ref
-from kgat_tpu.ops.pallas.segment_sum import (pack_gathered,
-                                             segment_sum_aligned,
-                                             segment_sum_packed)
-from kgat_tpu.ops.pallas.sddmm import sddmm_transr_ad
 
-# Scalar-wise ops: reference path (cheap relative to SpMM/SDDMM).
+# Scalar-wise ops: reference path (cheap relative to the SpMM).
 segment_softmax = _ref.segment_softmax
 sddmm_dot = _ref.sddmm_dot
 segment_sum = _ref.segment_sum
@@ -36,449 +45,167 @@ segment_max = _ref.segment_max
 segment_min = _ref.segment_min
 segment_mean = _ref.segment_mean
 
+# Pieces per kernel program (the tile is (BLOCK_PIECES, d) float32) and
+# warps per program: the fastest pair measured on an H100 at yelp scale for
+# d = 64 and 32 (PERF.md).
+BLOCK_PIECES = 32
+NUM_WARPS = 8
 
-def gspmm(graph: Graph, msg: str, reduce: str, x=None, edge_w=None):
-    """Generalized g-SpMM (DGL update_all surface) on the pallas backend.
 
-    The weighted-sum/mean cases with scalar edge weights — the
-    bandwidth-bound ones — run the block-aligned Pallas reduce; mean
-    divides the kernel's sum by the real in-degree (DGL semantics).
-    Min/max and feature-valued edge data take the XLA path (comparison
-    reduces don't map onto the one-hot-matmul MXU kernel; they are not on
-    any hot path).
+def _feature_width(d: int) -> int:
+    """Kernel tile width for feature dim d: Triton tiles are powers of 2."""
+    return max(16, 1 << (d - 1).bit_length())
+
+
+def _spmm_kernel(start_ref, length_ref, nbr_ref, w_ref, x_ref, out_ref):
+    start = start_ref[...]
+    length = length_ref[...]
+    bp, d = out_ref.shape
+    col = jax.lax.broadcasted_iota(jnp.int32, (bp, d), 1)
+
+    def step(k, acc):
+        live = k < length
+        pos = start + k
+        nbr = plgpu.load(nbr_ref.at[pos], mask=live, other=0)
+        w = plgpu.load(w_ref.at[pos], mask=live, other=0)
+        rows = jnp.broadcast_to(nbr[:, None], (bp, d))
+        xg = plgpu.load(x_ref.at[rows, col], mask=live[:, None], other=0)
+        return acc + w.astype(jnp.float32)[:, None] * xg.astype(jnp.float32)
+
+    out_ref[...] = jax.lax.fori_loop(0, jnp.max(length), step,
+                                     jnp.zeros((bp, d), jnp.float32))
+
+
+def csr_reduce(pieces: RowPieces, nbr: jax.Array, w: jax.Array,
+               x: jax.Array, n_out: int, *, interpret: bool = False
+               ) -> jax.Array:
+    """out[r] = sum over CSR positions p of row r: w[p] * x[nbr[p]].
+
+    Returns (n_out, d) float32. x may be bf16 (gathered at half the bytes,
+    accumulated in float32). Rows without pieces are zero; pieces whose
+    row is >= n_out are dropped.
     """
-    if (msg == "u_mul_e" and reduce in ("sum", "mean")
-            and edge_w is not None and edge_w.ndim == 1):
-        s = spmm(graph, edge_w, x)
-        if reduce == "sum":
-            return s
-        deg = _ref.segment_sum(graph, graph.edge_mask)
-        deg = jnp.maximum(deg, 1.0)
-        return s / deg[:, None]
-    if msg == "copy_u" and reduce in ("sum", "mean"):
-        ones = jnp.ones((graph.n_edges_pad,), x.dtype)
-        return gspmm(graph, "u_mul_e", reduce, x, ones)
-    return _ref.gspmm(graph, msg, reduce, x, edge_w)
+    n, d = x.shape
+    v = pieces.start.shape[0]
+    if v == 0:
+        return jnp.zeros((n_out, d), jnp.float32)
+    dp = _feature_width(d)
+    if dp != d:
+        x = jnp.pad(x, ((0, 0), (0, dp - d)))
+    vp = -(-v // BLOCK_PIECES) * BLOCK_PIECES
+    start = jnp.pad(pieces.start, (0, vp - v))
+    length = jnp.pad(pieces.length, (0, vp - v))
+    vec = pl.BlockSpec((BLOCK_PIECES,), lambda i: (i,))
+    partial = pl.pallas_call(
+        _spmm_kernel,
+        grid=(vp // BLOCK_PIECES,),
+        in_specs=[vec, vec, pl.no_block_spec, pl.no_block_spec,
+                  pl.no_block_spec],
+        out_specs=pl.BlockSpec((BLOCK_PIECES, dp), lambda i: (i, 0)),
+        out_shape=jax.ShapeDtypeStruct((vp, dp), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name="csr_spmm",
+    )(start, length, nbr, w, x)
+    out = jax.ops.segment_sum(partial[:v], pieces.row, num_segments=n_out,
+                              indices_are_sorted=True)
+    return out[:, :d]
 
 
-import dataclasses
+@functools.partial(jax.custom_vjp, nondiff_argnums=(0,))
+def _spmm_p(static, w_fwd, w_rev, x, fwd_pieces, fwd_nbr, fwd_rows,
+            rev_pieces, rev_nbr):
+    n_fwd, _n_rev, interpret = static
+    return csr_reduce(fwd_pieces, fwd_nbr, w_fwd, x, n_fwd,
+                      interpret=interpret)
 
 
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class EdgeWeights:
-    """Edge weights pre-gathered into both aligned SpMM layouts.
-
-    The aligned scalar gather costs ~43ms at Yelp2018 scale (vs ~21ms for
-    the reduce kernel itself) because random 4-byte gathers are
-    granule-wasteful on TPU. Attention weights are recomputed once per
-    epoch and reused across every CF step and layer (SURVEY.md §3.1), so
-    the trainer prepares them once with :func:`prepare_weights` and the
-    hot loop streams them sequentially.
-    """
-
-    fwd: jax.Array   # (E_al_fwd,) (w * mask)[fwd_layout.gather]
-    rev: jax.Array   # (E_al_rev,)
-    # Strip f32 forms {pack: (n_chunks, pack, chunk_edges/pack)} matching
-    # AlignedLayout.node_t's strip-contiguous convention — the packed SpMM
-    # kernel folds these into its one-hot so the hot loop never
-    # materializes weighted edge values. Each is a PURE RESHAPE of the
-    # aligned vector (plus an f32 cast), so staging costs no relayout.
-    # None on legacy-staged weights (the reduce then takes the old path).
-    fwd_t: object = None
-    rev_t: object = None
-    # True when fwd/rev live in the multi-edge-COALESCED layouts
-    # (graph.build_coalesced): spmm then reduces over distinct (dst, src)
-    # pairs with summed weights — ~20-28% fewer gather rows at reference
-    # scale. Static so the jitted program specializes on it.
-    coalesced: bool = dataclasses.field(
-        default=False, metadata=dict(static=True))
-    # Group cap the coalesced layouts were built with — spmm must fetch
-    # the SAME layouts (E_alc depends on it).
-    cap: int = dataclasses.field(default=8, metadata=dict(static=True))
+def _spmm_fwd(static, w_fwd, w_rev, x, fwd_pieces, fwd_nbr, fwd_rows,
+              rev_pieces, rev_nbr):
+    out = _spmm_p(static, w_fwd, w_rev, x, fwd_pieces, fwd_nbr, fwd_rows,
+                  rev_pieces, rev_nbr)
+    return out, (w_fwd, w_rev, x, fwd_nbr, fwd_rows, rev_pieces, rev_nbr)
 
 
-DEFAULT_PACKS = (2, 4, 8)
-
-
-def pack_for_dim(d: int) -> int:
-    """Lane-pack width for a feature dim (1 = packing not applicable)."""
-    return 128 // d if (d <= 128 and 128 % d == 0) else 1
-
-
-def packs_for(cfg) -> tuple:
-    """The pack widths the model's SpMM calls will actually request:
-    spmm at layer l runs on features of dim embed_dim (l=0) or
-    conv_dims[l-1]. Restricting staging to these skips dead per-epoch
-    deinterleave transposes (each is a ~20 MB relayout at Yelp scale)."""
-    dims = [cfg.embed_dim] + list(cfg.conv_dims[:-1])
-    return tuple(sorted({128 // d for d in dims
-                         if d < 128 and 128 % d == 0}))
-
-
-def _deinterleave_w(w_aligned: jax.Array, packs=DEFAULT_PACKS,
-                    chunk_edges: int = 1024) -> dict:
-    """{pack: (n_chunks, pack, chunk_edges/pack) f32} strip weights —
-    pure reshapes of the aligned vector (see segment_sum_packed)."""
-    w32 = w_aligned.astype(jnp.float32)
-    return {k: w32.reshape(-1, k, chunk_edges // k) for k in packs}
-
-
-def prepare_weights(graph: Graph, edge_w: jax.Array,
-                    dtype=None, packs=DEFAULT_PACKS,
-                    coalesce: bool = False, cap: int = 8) -> EdgeWeights:
-    """Stage canonical edge weights into both aligned layouts.
-
-    dtype: optional weight dtype (bf16 halves the per-step weight stream
-    and keeps the vals multiply in the low-precision domain — see spmm).
-    Also precomputes the strip f32 forms the packed kernel wants.
-    packs: which pack widths to stage (see packs_for).
-    coalesce: stage into the multi-edge-coalesced layouts instead (see
-    coalesce_weights) — fewer SpMM gather rows; requires a concrete
-    (host-built) graph, so not usable inside shard_map.
-    """
-    wm = edge_w * graph.edge_mask
-    if coalesce:
-        return coalesce_weights(graph, wm[graph.fwd_layout.gather],
-                                dtype=dtype, packs=packs, cap=cap)
-    if dtype is not None:
-        wm = wm.astype(dtype)
-    fwd = wm[graph.fwd_layout.gather]
-    rev = wm[graph.rev_layout.gather]
-    return EdgeWeights(
-        fwd=fwd, rev=rev,
-        fwd_t=_deinterleave_w(fwd, packs, graph.fwd_layout.chunk_edges),
-        rev_t=_deinterleave_w(rev, packs, graph.rev_layout.chunk_edges))
-
-
-def coalesce_weights(graph: Graph, w_fwd_aligned: jax.Array,
-                     dtype=None, packs=DEFAULT_PACKS,
-                     cap: int = 8) -> EdgeWeights:
-    """Stage fwd-aligned edge weights into the multi-edge-COALESCED
-    layouts (graph.build_coalesced): members of a multi-edge collapse to
-    one SpMM position with their weights summed.
-
-    Three device steps, all cheap relative to the rev-layout scalar take
-    they extend/replace: (1) within-run running sums via cap-1 shifted
-    masked adds over the (E_al,) stream (members are adjacent — the
-    canonical order sorts within segments by src); (2)+(3) one static
-    SORTED take per layout picking each group's last running sum (=
-    its total) straight into coalesced-aligned order. Dead positions
-    pick index E_al -> fill 0.
-
-    Differentiable end to end (shifts/takes are linear), so autograd
-    w.r.t. the underlying per-edge weights works — though the trainer
-    stages attention under stop_gradient anyway (SURVEY.md §3.1).
-    """
-    from kgat_tpu.graph import build_coalesced
-    return coalesce_weights_from(build_coalesced(graph, cap), w_fwd_aligned,
-                                 dtype=dtype, packs=packs)
-
-
-def coalesce_weights_from(co, w_fwd_aligned: jax.Array,
-                          dtype=None, packs=DEFAULT_PACKS) -> EdgeWeights:
-    """Device math of :func:`coalesce_weights` given a prebuilt
-    CoalescedLayouts — also usable inside shard_map with a shard-local
-    (traced) `co` pytree (parallel/halo.py)."""
-    w32 = w_fwd_aligned.astype(jnp.float32)
-    acc = w32
-    for j in range(1, co.cap):
-        shifted = jnp.concatenate([jnp.zeros((j,), jnp.float32), w32[:-j]])
-        acc = acc + jnp.where(co.within >= j, shifted, 0.0)
-    # Force the running sum to materialize: XLA otherwise fuses the whole
-    # shifted-add chain INTO the two gathers, recomputing it per picked
-    # element (the same trap pack_gathered documents — measured 2x here).
-    acc = jax.lax.optimization_barrier(acc)
-    wf = jnp.take(acc, co.pick_fwd, mode="fill", fill_value=0.0)
-    wr = jnp.take(acc, co.pick_rev, mode="fill", fill_value=0.0)
-    if dtype is not None:
-        wf, wr = wf.astype(dtype), wr.astype(dtype)
-    return EdgeWeights(
-        fwd=wf, rev=wr,
-        fwd_t=_deinterleave_w(wf, packs, co.fwd.chunk_edges),
-        rev_t=_deinterleave_w(wr, packs, co.rev.chunk_edges),
-        coalesced=True, cap=int(co.cap))
-
-
-def _layout_reduce(layout, w_aligned, x, n_nodes,
-                   precision=jax.lax.Precision.HIGHEST, w_t=None):
-    """One direction of SpMM: gather features straight into the aligned
-    order (no separate permutation pass) and reduce with the Pallas kernel.
-    Dead positions carry w == 0 (they gather the masked pad slot).
-
-    When x (and the staged weights) are bf16, the gather, multiply, and
-    kernel value stream all run at half the bytes; the kernel accumulates
-    f32 on the MXU and returns f32.
-
-    w_t: optional deinterleaved (pack, E_al/pack) f32 weights for this
-    layout (EdgeWeights.fwd_t/rev_t[pack]). When given and the feature
-    dim needs packing, takes the fast path: full-lane strip gathers via
-    ``layout.node_t`` + the fused-weight kernel — ~2-3x faster than the
-    legacy gather/multiply/repack pipeline at Yelp2018 scale on v5e.
-    """
-    if x.dtype == jnp.bfloat16:
-        precision = jax.lax.Precision.DEFAULT  # single-pass by nature
-    pack = pack_for_dim(x.shape[-1])
-    if (w_t is not None and pack > 1 and layout.node_t is not None
-            and pack in layout.node_t and layout.n_chunks > 0):
-        packed = pack_gathered(x, layout, pack)
-        return segment_sum_packed(packed, w_t, layout, n_nodes,
-                                  precision=precision)
-    vals = x[layout.node] * w_aligned[:, None].astype(x.dtype)
-    return segment_sum_aligned(vals.astype(x.dtype), layout, n_nodes,
-                               precision=precision)
-
-
-@jax.custom_vjp
-def _spmm_p(w_fwd, w_rev, w_fwd_t, w_rev_t, x, fwd_layout, rev_layout):
-    return _layout_reduce(fwd_layout, w_fwd, x, x.shape[0], w_t=w_fwd_t)
-
-
-def _spmm_fwd(w_fwd, w_rev, w_fwd_t, w_rev_t, x, fwd_layout, rev_layout):
-    out = _spmm_p(w_fwd, w_rev, w_fwd_t, w_rev_t, x, fwd_layout,
-                  rev_layout)
-    return out, (w_fwd, w_rev, w_rev_t, x, fwd_layout, rev_layout)
-
-
-def _spmm_bwd(res, g):
-    w_fwd, w_rev, w_rev_t, x, fwd_layout, rev_layout = res
-    n = x.shape[0]
-    # dL/dw_fwd[j] = <x[node_j], g[seg_j]> — the SDDMM dual, in aligned
-    # coordinates. (XLA drops this branch when the weights are
-    # stop-gradient, the common case: attention is cached per epoch.)
-    d_w_fwd = jnp.sum(x[fwd_layout.node] * g[fwd_layout.seg],
-                      axis=-1).astype(w_fwd.dtype)
+def _spmm_bwd(static, res, g):
+    n_fwd, n_rev, interpret = static
+    w_fwd, w_rev, x, fwd_nbr, fwd_rows, rev_pieces, rev_nbr = res
+    # dL/dw[p] = <x[nbr_p], g[row_p]> — the SDDMM dual. (XLA drops this
+    # branch when the weights are stop-gradient, the training case:
+    # attention is cached per epoch.)
+    d_w = jnp.sum(x[fwd_nbr].astype(jnp.float32)
+                  * g[jnp.clip(fwd_rows, 0, n_fwd - 1)], axis=-1)
     # dL/dx[u] = sum over edges with src == u of w_e * g[dst_e] — the
-    # segment-sum dual on the reverse graph; rev_layout.node is dst there.
-    # DEFAULT (bf16-pass) precision: gradients tolerate ~1e-3 noise and it
-    # saves ~11% of the reduce (activations keep HIGHEST for parity).
-    d_x = _layout_reduce(rev_layout, w_rev, g.astype(x.dtype), n,
-                         precision=jax.lax.Precision.DEFAULT,
-                         w_t=w_rev_t)
-    return (d_w_fwd, None, None, None, d_x.astype(x.dtype), None, None)
+    # same kernel on the reverse graph, streaming g at x's dtype.
+    d_x = csr_reduce(rev_pieces, rev_nbr, w_rev, g.astype(x.dtype), n_rev,
+                     interpret=interpret)
+    return (d_w.astype(w_fwd.dtype), jnp.zeros_like(w_rev),
+            d_x.astype(x.dtype), None, None, None, None, None)
 
 
 _spmm_p.defvjp(_spmm_fwd, _spmm_bwd)
 
 
-def spmm(graph: Graph, edge_w, x: jax.Array) -> jax.Array:
-    """out[v] = sum over edges (u -> v) of edge_w[e] * x[u] (Pallas path).
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class EdgeWeights:
+    """Masked edge weights staged for both SpMM directions: canonical
+    (dst-sorted) order and reverse (src-sorted) order. Attention weights
+    change once per epoch (SURVEY.md §3.1), so the trainer stages them once
+    with :func:`prepare_weights` and every CF step reuses both vectors."""
 
-    ``edge_w`` is either canonical (E_pad,) weights or a prepared
-    :class:`EdgeWeights` (preferred in hot loops — see EdgeWeights).
-    Coalesced EdgeWeights reduce over the distinct-pair layouts instead.
+    fwd: jax.Array   # (E_pad,) w * mask, canonical order
+    rev: jax.Array   # (E_pad,) fwd[graph.rev_perm]
+
+
+def prepare_weights(graph: Graph, edge_w: jax.Array) -> EdgeWeights:
+    fwd = edge_w * graph.edge_mask
+    return EdgeWeights(fwd=fwd, rev=fwd[graph.rev_perm])
+
+
+def spmm_pieces(ew: EdgeWeights, x: jax.Array, fwd_pieces: RowPieces,
+                fwd_nbr: jax.Array, fwd_rows: jax.Array, n_fwd: int,
+                rev_pieces: RowPieces, rev_nbr: jax.Array, n_rev: int,
+                *, interpret: bool = False) -> jax.Array:
+    """Differentiable SpMM over explicit CSR pieces (the partitioned path
+    passes a shard's local view): (n_fwd, d) float32."""
+    return _spmm_p((n_fwd, n_rev, interpret), ew.fwd, ew.rev, x,
+                   fwd_pieces, fwd_nbr, fwd_rows, rev_pieces, rev_nbr)
+
+
+def spmm(graph: Graph, edge_w, x: jax.Array, *, interpret: bool = False
+         ) -> jax.Array:
+    """out[v] = sum over edges (u -> v) of edge_w[e] * x[u], float32.
+
+    ``edge_w`` is either canonical (E_pad,) weights or prepared
+    :class:`EdgeWeights` (preferred in hot loops).
     """
     ew = edge_w if isinstance(edge_w, EdgeWeights) \
         else prepare_weights(graph, edge_w)
-    if ew.coalesced:
-        from kgat_tpu.graph import build_coalesced
-        co = build_coalesced(graph, ew.cap)
-        lay_f, lay_r = co.fwd, co.rev
-    else:
-        lay_f, lay_r = graph.fwd_layout, graph.rev_layout
-    pack = pack_for_dim(x.shape[-1])
-    w_fwd_t = ew.fwd_t.get(pack) if isinstance(ew.fwd_t, dict) else None
-    w_rev_t = ew.rev_t.get(pack) if isinstance(ew.rev_t, dict) else None
-    return _spmm_p(ew.fwd, ew.rev, w_fwd_t, w_rev_t, x, lay_f, lay_r)
+    return spmm_pieces(ew, x, graph.fwd_pieces, graph.src, graph.dst,
+                       graph.n_nodes, graph.rev_pieces, graph.rev_nbr,
+                       graph.n_nodes, interpret=interpret)
 
 
-def _attention_logits_flat(params, graph: Graph) -> jax.Array:
-    """TransR attention logits (A4) in the relation-blocked att layout.
+def gspmm(graph: Graph, msg: str, reduce: str, x=None, edge_w=None, *,
+          interpret: bool = False):
+    """Generalized g-SpMM (DGL update_all surface) on the pallas backend.
 
-    Gathers happen in XLA (gather hardware path); the two projections,
-    tanh, and row-dot are one Pallas kernel (kernels/sddmm.py).
+    The weighted-sum/mean cases with scalar edge weights — the
+    bandwidth-bound ones — run the CSR kernel; mean divides the kernel's
+    sum by the real in-degree (DGL semantics). Min/max and feature-valued
+    edge data take the XLA path (not on any hot path).
     """
-    tile = _att_tile(graph)
-    tile_rel = _tile_rel_ids(graph, tile)
-    emb = params["entity_embed"]
-    dst_c = jnp.minimum(graph.dst, graph.n_nodes - 1)
-    eh = emb[dst_c[graph.att_gather]]     # heads (E_att_pad, d)
-    et = emb[graph.src[graph.att_gather]]  # tails
-    return sddmm_transr_ad(eh, et, params["w_rel"], params["rel_embed"],
-                           tile_rel, tile)
-
-
-def attention_logits(params, graph: Graph, cfg) -> jax.Array:
-    """Canonical-order logits (E_pad,) — the parity-spec API."""
-    flat = _attention_logits_flat(params, graph)
-    logits = jnp.zeros((graph.n_edges_pad,), flat.dtype)
-    return logits.at[graph.att_gather].set(flat, mode="drop")
-
-
-# Dense-projection attention: max total bytes for the two (R*N, k)
-# projected tables before auto falls back to the relation-blocked SDDMM.
-# NOT a memory-fit bound — a locality bound: measured on v5e, full-lane
-# strip gathers run 7.25 ms/E_al rows from a 45 MB table but 51.7 ms from
-# a 1.5 GB table (per-row cost grows ~7x once the working set leaves
-# cache), which makes dense SLOWER than relblock+route at reference scale
-# (both presets need ~6 GB f32 of tables). Dense wins only while tables
-# stay cache-resident; see ROADMAP "dense-projection negative result".
-ATT_DENSE_MAX_BYTES = 1.5e8
-
-
-def use_dense_attention(graph: Graph, cfg) -> bool:
-    """att_impl resolution: 'dense' | 'relblock' | 'auto' (by table size).
-
-    The dense path needs relation_dim <= 128 dividing 128 (for the
-    strip-packed table gathers) and both projected tables to fit in HBM.
-    """
-    impl = getattr(cfg, "att_impl", "auto")
-    if impl == "relblock":
-        return False
-    k = getattr(cfg, "relation_dim", 64)
-    fits = (k <= 128 and 128 % k == 0)
-    dt = getattr(cfg, "att_table_dtype", None)
-    nbytes = 2 if dt == jnp.bfloat16 else 4
-    size_ok = 2 * graph.n_relations * graph.n_nodes * k * nbytes \
-        <= ATT_DENSE_MAX_BYTES
-    if impl == "dense":
-        if not fits:
-            raise ValueError(f"att_impl='dense' needs relation_dim {k} "
-                             "to divide 128")
-        return True
-    return fits and size_ok
-
-
-def _dense_att_idx(graph: Graph, q: int):
-    """Strip-packed (R*N)-table row indices per fwd-aligned position.
-
-    For aligned position p with relation r_p: head index
-    ih = r_p * n_nodes + dst_p (the tanh-table row), tail index
-    it = r_p * n_nodes + src_p (the projection-table row). Packed
-    EDGE-INTERLEAVED into q = 128//k strips (ih_t[j, m] = ih[m*q + j])
-    so the q gathered (E_al/q, k) strips lane-concat into full-lane rows
-    AND the per-strip row dots land LINEARLY in fwd-aligned order (strip
-    j of packed row m is position m*q + j). Host-precomputed once per
-    graph; dead positions carry relation 0 / node 0 (their softmax
-    output is zeroed by the bounds mask regardless).
-    """
-    cache = getattr(graph, "_dense_att", None)
-    if cache is None:
-        cache = {}
-        object.__setattr__(graph, "_dense_att", cache)
-    if q not in cache:
-        from kgat_tpu.graph import host_array
-        lay = graph.fwd_layout
-        gat = host_array(lay, "gather")
-        ety = host_array(graph, "etype")[np.minimum(gat,
-                                                    graph.n_edges_pad - 1)]
-        ety = np.where(gat < graph.n_edges, ety, 0).astype(np.int64)
-        base = ety * graph.n_nodes
-        ih = base + host_array(lay, "seg")    # dst = segment (tanh table)
-        it = base + host_array(lay, "node")   # src = other endpoint
-        pack = lambda v: jnp.asarray(np.ascontiguousarray(  # noqa: E731
-            v.reshape(-1, q).T.astype(np.int32)))
-        # Cached arrays must be concrete even when first touched inside a
-        # jit trace, or they leak as tracers into later traces.
-        with jax.ensure_compile_time_eval():
-            cache[q] = (pack(ih), pack(it))
-    return cache[q]
-
-
-def _attention_logits_fwd_dense(params, graph: Graph, cfg) -> jax.Array:
-    """TransR logits (A4) DIRECTLY in fwd-aligned order via dense
-    per-relation projected tables — no relation-blocked layout, no
-    att->fwd permutation gather.
-
-    Build Q[r, n] = emb[n] @ W_r and T[r, n] = tanh(Q[r, n] + e_r) once
-    (batched MXU einsum over all relations), then per aligned position
-    logit = Q[r, src] . T[r, dst] with two strip-packed full-lane row
-    gathers. Replaces the relation-blocked SDDMM kernel (2 half-lane
-    gathers + kernel) AND the att->fwd scalar permutation (~35 ms at
-    Yelp2018 scale — scalar takes run ~2x slower per row than full-lane
-    row gathers on v5e).
-    """
-    k = cfg.relation_dim
-    q = 128 // k
-    emb = params["entity_embed"]
-    # HIGHEST: parity with the relation-blocked path / ref oracle (the
-    # MXU's DEFAULT f32 dot truncates to bf16 passes).
-    qt = jnp.einsum("rdk,nd->rnk", params["w_rel"], emb,
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)
-    tt = jnp.tanh(qt + params["rel_embed"][:, None, :])
-    dt = getattr(cfg, "att_table_dtype", None)
-    if dt is not None:
-        qt, tt = qt.astype(dt), tt.astype(dt)
-    q2 = qt.reshape(-1, k)
-    t2 = tt.reshape(-1, k)
-    if q == 1:
-        ih, it = _dense_att_idx(graph, 1)
-        prod = q2[it[0]].astype(jnp.float32) * t2[ih[0]].astype(jnp.float32)
-        return jnp.sum(prod, axis=-1)
-    ih, it = _dense_att_idx(graph, q)
-    qg = jnp.concatenate([q2[it[j]] for j in range(q)], axis=1)
-    tg = jnp.concatenate([t2[ih[j]] for j in range(q)], axis=1)
-    prod = qg.astype(jnp.float32) * tg.astype(jnp.float32)
-    e_al = graph.fwd_layout.n_chunks * graph.fwd_layout.chunk_edges
-    return prod.reshape(-1, q, k).sum(-1).reshape(e_al)
-
-
-def attention_logits_fwd(params, graph: Graph, cfg) -> jax.Array:
-    """Fwd-aligned TransR logits: dense-projection route when the tables
-    fit (see use_dense_attention), else the relation-blocked SDDMM kernel
-    + one static-permutation scatter (att_to_fwd). Scatter, not the
-    inverse gather: measured 62 vs 71 ms for the composed
-    logits+route+softmax at yelp scale on v5e — writes of the permutation
-    beat reads here (dead positions stay 0; the softmax bounds exclude
-    them regardless)."""
-    if use_dense_attention(graph, cfg):
-        return _attention_logits_fwd_dense(params, graph, cfg)
-    flat = _attention_logits_flat(params, graph)
-    e_al = graph.fwd_layout.n_chunks * graph.fwd_layout.chunk_edges
-    return jnp.zeros((e_al,), flat.dtype).at[graph.att_to_fwd].set(
-        flat, mode="drop")
-
-
-def attention_prepared(params, graph: Graph, cfg) -> EdgeWeights:
-    """The fused attention pipeline: logits -> softmax -> EdgeWeights,
-    entirely in aligned layouts (A4 + A5).
-
-    Avoids the canonical-order round trip entirely: fwd-aligned logits
-    come from the dense-projection route (or the relation-blocked SDDMM
-    kernel + one inverse-permutation GATHER — graph.fwd_from_att,
-    host-precomputed; a scatter of the same routing serializes on TPU),
-    the Pallas segment softmax (kernels/softmax.py) normalizes there, and
-    the reverse weights are one static-permutation take. The XLA-composed
-    path measured ~285ms of scalar scatter/gather + softmax at Yelp2018
-    scale; this pipeline replaces all of it with streaming kernel passes.
-    """
-    from kgat_tpu.ops.pallas.softmax import segment_softmax_aligned_ad
-    logits_fwd = attention_logits_fwd(params, graph, cfg)
-    w_fwd = segment_softmax_aligned_ad(logits_fwd, graph.fwd_layout)
-    packs = packs_for(cfg) if hasattr(cfg, "conv_dims") else DEFAULT_PACKS
-    if getattr(cfg, "coalesce", False):
-        return coalesce_weights(graph, w_fwd,
-                                dtype=getattr(cfg, "compute_dtype", None),
-                                packs=packs,
-                                cap=getattr(cfg, "coalesce_cap", 8))
-    if getattr(cfg, "compute_dtype", None) is not None:
-        w_fwd = w_fwd.astype(cfg.compute_dtype)
-    w_rev = jnp.take(w_fwd, graph.rev_from_fwd, mode="fill", fill_value=0.0)
-    return EdgeWeights(
-        fwd=w_fwd, rev=w_rev,
-        fwd_t=_deinterleave_w(w_fwd, packs, graph.fwd_layout.chunk_edges),
-        rev_t=_deinterleave_w(w_rev, packs, graph.rev_layout.chunk_edges))
-
-
-def _att_tile(graph: Graph) -> int:
-    """Largest tile (<=1024, multiple of 128 for the lane-packed output)
-    dividing every relation block. Production graphs build with
-    rel_block=1024 -> tile 1024; interpret-mode CI graphs use smaller
-    relation blocks to stay inside the CPU emulation's block limits."""
-    import math
-    tile = 1024
-    for (_, _, _, p) in graph.rel_blocks:
-        tile = math.gcd(tile, p)
-    if tile % 128:
-        raise ValueError("relation blocks not tile-aligned; rebuild the "
-                         "graph with rel_block a multiple of 128")
-    return tile
-
-
-def _tile_rel_ids(graph: Graph, tile: int) -> jax.Array:
-    ids = np.zeros(sum(p for (_, _, _, p) in graph.rel_blocks) // tile,
-                   np.int32)
-    for (r, start, _cnt, pad) in graph.rel_blocks:
-        ids[start // tile: (start + pad) // tile] = r
-    return jnp.asarray(ids)
+    if (msg == "u_mul_e" and reduce in ("sum", "mean")
+            and edge_w is not None and edge_w.ndim == 1):
+        s = spmm(graph, edge_w, x, interpret=interpret).astype(x.dtype)
+        if reduce == "sum":
+            return s
+        deg = _ref.segment_sum(graph, graph.edge_mask)
+        return s / jnp.maximum(deg, 1.0)[:, None]
+    if msg == "copy_u" and reduce in ("sum", "mean"):
+        ones = jnp.ones((graph.n_edges_pad,), x.dtype)
+        return gspmm(graph, "u_mul_e", reduce, x, ones, interpret=interpret)
+    return _ref.gspmm(graph, msg, reduce, x, edge_w)

@@ -1,6 +1,6 @@
 """Reference (pure-XLA) message-passing ops.
 
-These are the semantics oracle for the Pallas kernels and the CPU/debug
+These are the semantics oracle for the GPU SpMM kernel and the CPU/debug
 path. Each op mirrors one native DGL component (SURVEY.md §2.2):
 
   spmm            <- g-SpMM: `update_all(fn.u_mul_e('h','w','m'), fn.sum)`

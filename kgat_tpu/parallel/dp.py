@@ -2,9 +2,9 @@
 
 Strategy (SURVEY.md §2.3 DP row): CF/KG minibatches are sharded over chips
 on the batch axis; parameters are replicated; XLA inserts the gradient
-all-reduce over ICI from the sharding annotations (the scaling-book recipe:
-pick a mesh, annotate, let XLA place collectives). No NCCL/MPI translation —
-there is nothing to port; the reference has no distributed path at all.
+all-reduce from the sharding annotations (pick a mesh, annotate, let XLA
+place collectives; on GPUs they run over NCCL). There is nothing to port:
+the reference has no distributed path at all.
 
 The graph (edge arrays) is replicated here; edge-*partitioned* execution
 lives in kgat_tpu.parallel.partition / halo and composes with this DP axis.
@@ -161,8 +161,8 @@ def make_dp_kg_scan(mesh: Mesh, cfg: kgat.KGATConfig,
                     batch_size: int, axis: str = "dp") -> Callable:
     """Device-resident DP KG phase: lax.scan over minibatches in one
     compiled program — device-side negative sampling, the TransR loss
-    shard_map'd over the batch axis (per-shard partial sums psum'd over
-    ICI), optimizer update replicated."""
+    shard_map'd over the batch axis (per-shard partial sums psum'd),
+    optimizer update replicated."""
     from kgat_tpu.sampler import sample_kg_batch
 
     def dp_loss_inner(params, h, r, tp, tn, w):

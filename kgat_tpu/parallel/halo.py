@@ -5,7 +5,7 @@ graphs): with 1D dst-partitioning,
 
   attention (SDDMM + edge softmax)  -> zero communication
   propagation SpMM forward          -> all-gather of layer activations
-                                       over ICI (boundary embeddings)
+                                       (boundary embeddings)
   SpMM backward feature grads       -> the all-gather's transpose
                                        (reduce-scatter/psum), inserted by
                                        shard_map's AD automatically
@@ -13,7 +13,7 @@ graphs): with 1D dst-partitioning,
                                        axis: CF batches are ep-sharded too)
 
 The reference has no distributed path at all (SURVEY.md §2.3); there is
-nothing to port — this is new capability designed for the TPU mesh.
+nothing to port. On GPUs, XLA runs these collectives over NCCL.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from kgat_tpu.graph import ALIGN_BLOCK_ROWS, CKGMeta, Graph
 from kgat_tpu.models import kgat
 from kgat_tpu.ops import pallas_backend as pb
+from kgat_tpu.ops import resolve_backend
 from kgat_tpu.parallel.partition import PartitionInfo
 
 AXIS = "ep"
@@ -39,93 +40,39 @@ def _local(tree):
 
 
 # ---------------------------------------------------------------------------
-# Partitioned SpMM: (n_pad, d) replicated features -> (R, d) owned rows.
-# Two reduce flavors over the same AlignedLayout: the Pallas kernel
-# (Mosaic on TPU; the TPU interpret machinery emulates it inside shard_map
-# on CPU meshes — ops/pallas/runtime.py) and a plain XLA segment_sum (the
-# ref backend / oracle path).
+# Bucket SpMM of the ring and all-to-all exchanges: an XLA segment_sum over
+# an AlignedLayout, (T, d) features -> (n_out, d) rows, whose VJP reduces the
+# cotangent over the bucket's reverse layout.
 # ---------------------------------------------------------------------------
 
-def _xla_reduce(layout, w_aligned, x, n_out, w_t=None):
+def _xla_reduce(layout, w_aligned, x, n_out):
     vals = x[layout.node] * w_aligned[:, None]
     # Dead positions carry w == 0 and seg == 0 (interspersed, so the ids
     # are not globally sorted).
     return jax.ops.segment_sum(vals, layout.seg, num_segments=n_out)
 
 
-def _make_pspmm(backend: str):
-    reduce_ = pb._layout_reduce if backend == "pallas" else _xla_reduce
-
-    def _wt(ew_t, d):
-        pack = pb.pack_for_dim(d)
-        return ew_t.get(pack) if isinstance(ew_t, dict) else None
-
-    @jax.custom_vjp
-    def pspmm(w_fwd, w_rev, w_fwd_t, w_rev_t, x, fwd_layout, rev_layout):
-        n_out = fwd_layout.n_blocks * ALIGN_BLOCK_ROWS
-        return reduce_(fwd_layout, w_fwd, x, n_out,
-                       w_t=_wt(w_fwd_t, x.shape[-1]))
-
-    def fwd(w_fwd, w_rev, w_fwd_t, w_rev_t, x, fwd_layout, rev_layout):
-        return pspmm(w_fwd, w_rev, w_fwd_t, w_rev_t, x, fwd_layout,
-                     rev_layout), \
-            (w_fwd, w_rev, w_rev_t, x, fwd_layout, rev_layout)
-
-    def bwd(res, g):
-        w_fwd, w_rev, w_rev_t, x, fwd_layout, rev_layout = res
-        d_w_fwd = jnp.sum(x[fwd_layout.node] * g[fwd_layout.seg],
-                          axis=-1).astype(w_fwd.dtype)
-        n_in = rev_layout.n_blocks * ALIGN_BLOCK_ROWS
-        # Mirror the single-device dual (pallas_backend._spmm_bwd): the
-        # cotangent stream reduces at the PRIMAL dtype — under bf16
-        # compute this halves the backward HBM pass (the r3 partitioned
-        # path reduced f32 cotangents and paid ~2x on every layer).
-        d_x = reduce_(rev_layout, w_rev, g.astype(x.dtype), n_in,
-                      w_t=_wt(w_rev_t, g.shape[-1]))
-        return (d_w_fwd, None, None, None, d_x.astype(x.dtype), None, None)
-
-    pspmm.defvjp(fwd, bwd)
-    return pspmm
+@jax.custom_vjp
+def _bucket_spmm(w_fwd, w_rev, x, fwd_layout, rev_layout):
+    return _xla_reduce(fwd_layout, w_fwd, x,
+                       fwd_layout.n_blocks * ALIGN_BLOCK_ROWS)
 
 
-def _make_pspmm_send(backend: str, n_devices: int, interpret,
-                     mesh_axes=None):
-    """Fused ring step with autograd: (bucket reduce + chunk send) in one
-    Pallas kernel (ops/pallas/remote_ring.py). Linear op; the VJP is the
-    reverse-layout reduce of the side cotangent plus the reverse-direction
-    DMA shift of the next-chunk cotangent (the send's transpose)."""
-    from kgat_tpu.ops.pallas.remote_ring import (_build_shift,
-                                                 make_reduce_send)
+def _bucket_spmm_fwd(w_fwd, w_rev, x, fwd_layout, rev_layout):
+    return _bucket_spmm(w_fwd, w_rev, x, fwd_layout, rev_layout), \
+        (w_fwd, w_rev, x, fwd_layout, rev_layout)
 
-    reduce_ = pb._layout_reduce if backend == "pallas" else _xla_reduce
-    fused = make_reduce_send(AXIS, n_devices, interpret=interpret,
-                             mesh_axes=mesh_axes)
-    left_shift = _build_shift(AXIS, n_devices, -1, 0, interpret, mesh_axes)
 
-    @jax.custom_vjp
-    def pspmm_send(w_fwd, w_rev, chunk, fwd_layout, rev_layout):
-        n_out = fwd_layout.n_blocks * ALIGN_BLOCK_ROWS
-        vals = (chunk[fwd_layout.node]
-                * w_fwd[:, None].astype(chunk.dtype))
-        return fused(vals, chunk, fwd_layout, n_out)
-
-    def fwd(w_fwd, w_rev, chunk, fwd_layout, rev_layout):
-        return pspmm_send(w_fwd, w_rev, chunk, fwd_layout, rev_layout), \
-            (w_fwd, w_rev, chunk, fwd_layout, rev_layout)
-
-    def bwd(res, cot):
-        g_side, g_next = cot
-        w_fwd, w_rev, chunk, fwd_layout, rev_layout = res
-        d_w = jnp.sum(chunk[fwd_layout.node] * g_side[fwd_layout.seg],
+def _bucket_spmm_bwd(res, g):
+    w_fwd, w_rev, x, fwd_layout, rev_layout = res
+    d_w_fwd = jnp.sum(x[fwd_layout.node] * g[fwd_layout.seg],
                       axis=-1).astype(w_fwd.dtype)
-        n_in = rev_layout.n_blocks * ALIGN_BLOCK_ROWS
-        d_chunk = (reduce_(rev_layout, w_rev, g_side.astype(chunk.dtype),
-                           n_in)
-                   .astype(chunk.dtype) + left_shift(g_next))
-        return (d_w, None, d_chunk, None, None)
+    n_in = rev_layout.n_blocks * ALIGN_BLOCK_ROWS
+    d_x = _xla_reduce(rev_layout, w_rev, g.astype(x.dtype), n_in)
+    return (d_w_fwd, None, d_x.astype(x.dtype), None, None)
 
-    pspmm_send.defvjp(fwd, bwd)
-    return pspmm_send
+
+_bucket_spmm.defvjp(_bucket_spmm_fwd, _bucket_spmm_bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +95,14 @@ class RingWeights:
 def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
                      meta: CKGMeta, cfg: kgat.KGATConfig,
                      exchange: str = "allgather", ring_buckets=None,
-                     sel_halo=None, ring_transport: str = "ppermute",
-                     dp_axis: str | None = None, coalesced=None):
+                     sel_halo=None, dp_axis: str | None = None):
     """Build jitted partitioned attention / propagate / cf-step callables.
 
     exchange:
       'allgather' — dense-graph fast path: one activation all-gather per
-        layer (bandwidth-optimal when every shard touches most rows).
+        layer (bandwidth-optimal when every shard touches most rows). Each
+        shard runs the single-device SpMM of the resolved ops backend over
+        its own CSR pieces.
       'ring' — the overlapped exchange: per-layer ring of (bucket reduce,
         ppermute) steps — each device reduces the edge bucket whose source
         chunk just arrived while the next chunk is in flight; requires
@@ -164,36 +112,15 @@ def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
         (table_rows, d) LOCAL table, never replicated — the path for
         tables too large to replicate; requires sel_halo
         (partition.build_selective_halo).
+      The ring and a2a bucket reduces are XLA segment sums.
 
-    ring_transport: how the ring moves activation chunks between
-      neighbors. 'ppermute' (default) — XLA's async collective-permute,
-      scheduled to overlap with the bucket reduce. 'dma' — the hand-rolled
-      Pallas remote-DMA kernel (ops/pallas/remote_ring.py, the [S:98-132]
-      idiom: send/recv DMA semaphores + barrier handshake); on CPU meshes
-      it runs under the TPU interpret machinery so tests cover it.
-      'fused' — reduce and send as ONE Pallas kernel (make_reduce_send):
-      the chunk's remote DMA is launched at the bucket reduce's first grid
-      step and waited at its last, so the ICI transfer is hidden under the
-      MXU reduce by construction, not by the XLA scheduler.
-
-    dp_axis: name of a data-parallel mesh axis for a 2D (dp, ep) mesh —
-      the production pod layout: the graph and its exchanges shard over
-      `ep` (replicated across dp rows), while CF minibatches shard over
-      BOTH axes and loss/grad reductions psum over both. None (default)
-      = 1D ep-only mesh. All three ring transports work on 2D meshes:
-      the DMA kernels address peers by full mesh coordinates, so each dp
-      row runs its own independent ring.
-
-    coalesced: stacked CoalescedLayouts (partition.build_coalesced_shards)
-      — multi-edge coalescing of the per-shard SpMM, the partitioned twin
-      of the single-device production default (~20-28% fewer gather rows
-      at reference scale). Supported on the 'allgather' exchange with the
-      pallas backend; the ring/a2a bucket layouts are their own edge
-      groupings and are not coalesced.
+    dp_axis: name of a data-parallel mesh axis for a 2D (dp, ep) mesh:
+      the graph and its exchanges shard over `ep` (replicated across dp
+      rows), while CF minibatches shard over BOTH axes and loss/grad
+      reductions psum over both. None (default) = 1D ep-only mesh.
     """
     N, n_pad, R = info.n_nodes_global, info.n_nodes_pad, info.rows_per_part
     nP = info.n_parts
-    pspmm = _make_pspmm(cfg.ops_backend)
     if exchange == "ring" and ring_buckets is None:
         raise ValueError("exchange='ring' requires ring_buckets "
                          "(partition.build_ring_buckets)")
@@ -204,118 +131,25 @@ def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
         raise ValueError(f"unknown exchange {exchange!r}")
     ring = exchange == "ring"
     a2a = exchange == "a2a"
-    if coalesced is not None and (ring or a2a or cfg.ops_backend != "pallas"):
-        raise ValueError("coalesced layouts require exchange='allgather' "
-                         "and the pallas backend")
-    extra = ring_buckets if ring else (
-        sel_halo if a2a else coalesced)
-    if ring_transport not in ("ppermute", "dma", "fused"):
-        raise ValueError(f"unknown ring_transport {ring_transport!r}")
+    extra = ring_buckets if ring else (sel_halo if a2a else None)
     batch_axes = AXIS if dp_axis is None else (dp_axis, AXIS)
-    if cfg.ops_backend == "pallas" and jax.default_backend() != "tpu":
-        # Two interpret-machinery limits measured on CPU CI (r4), both
-        # deadlocks without this guard (minimal repros in
-        # tests/test_multihost_2proc.py and tests/pallas_8way_worker.py):
-        # (1) kernels inside shard_map hang when the mesh occupies every
-        #     virtual device — the machinery's callbacks need one free
-        #     device thread (8-way runs fine on 9 devices);
-        # (2) kernels inside shard_map hang whenever the mesh spans more
-        #     than one OS process, kernels-only, spares or not — the
-        #     machinery's emulation state is process-local. Collectives
-        #     without kernels cross processes fine (ref backend), and on
-        #     real TPUs kernels are Mosaic-compiled, so this limit exists
-        #     only under CPU emulation.
-        if mesh.devices.size >= len(jax.devices()):
-            raise RuntimeError(
-                "pallas backend under CPU emulation needs at least one "
-                f"virtual device OUTSIDE the mesh (mesh uses "
-                f"{mesh.devices.size} of {len(jax.devices())}); raise "
-                "xla_force_host_platform_device_count by one")
-        n_procs = len({d.process_index for d in mesh.devices.flat})
-        if n_procs > 1:
-            raise RuntimeError(
-                "pallas backend under CPU emulation cannot run on a mesh "
-                f"spanning {n_procs} processes: the TPU interpret "
-                "machinery is process-local and kernel programs deadlock "
-                "across real process boundaries (r4 minimal repro). Use "
-                "ops_backend='ref' for multi-process CPU tests; Mosaic "
-                "kernels on real TPUs are unaffected.")
-    # interpret=None: kernels auto-resolve (Mosaic on TPU, the TPU
-    # interpret machinery on CPU meshes — ops/pallas/runtime.py).
-    _interp = None
-    # On a 2D (dp, ep) pod mesh the ring runs per dp row: the DMA kernels
-    # address peers by full mesh coordinates (ring axis varies, dp index
-    # stays own — ops/pallas/remote_ring._ring_dev).
-    _maxes = (None if dp_axis is None else (dp_axis, AXIS))
-    if ring and ring_transport == "dma":
-        from kgat_tpu.ops.pallas.remote_ring import make_ring_shift
-        _ring_shift = make_ring_shift(AXIS, nP, interpret=_interp,
-                                      mesh_axes=_maxes)
-    else:
-        _perm = [(i, (i + 1) % nP) for i in range(nP)]
-        _ring_shift = lambda v: jax.lax.ppermute(v, AXIS, _perm)  # noqa: E731
-    pspmm_send = (_make_pspmm_send(cfg.ops_backend, nP, _interp, _maxes)
-                  if ring and ring_transport == "fused" else None)
+    kernel = resolve_backend(cfg.ops_backend) == "pallas"
+    _perm = [(i, (i + 1) % nP) for i in range(nP)]
 
-    def _attention_fused(g, params):
-        """Shard-local fused attention (SURVEY.md §3.2): attention is
-        zero-comm under dst partitioning, so each shard runs the same
-        pipeline as single-chip `attention_prepared` — relation-blocked
-        SDDMM kernel -> one fwd-aligned take -> Pallas segment softmax —
-        instead of the canonical-order XLA softmax. (The single-device
-        dense-projection logits route needs host-precomputed index strips,
-        which a traced shard graph cannot supply inside shard_map — the
-        relblock route is the partitioned equivalent.) Returns the
-        fwd-aligned weights; canonical order is one take (canon_to_fwd)."""
-        from kgat_tpu.ops.pallas.softmax import segment_softmax_aligned
-        flat = pb._attention_logits_flat(params, g)
-        e_al = g.fwd_layout.n_chunks * g.fwd_layout.chunk_edges
-        logits_fwd = jnp.zeros((e_al,), flat.dtype).at[g.att_to_fwd].set(
-            flat, mode="drop")
-        return segment_softmax_aligned(logits_fwd, g.fwd_layout)
+    def _ring_shift(v):
+        return jax.lax.ppermute(v, AXIS, _perm)
 
     def attention_inner(g_stack, params, *ex_stack):
         g = _local(g_stack)
-        if cfg.ops_backend == "pallas":
-            w_fwd = jax.lax.stop_gradient(_attention_fused(g, params))
-            att = jnp.take(w_fwd, g.canon_to_fwd, mode="fill",
-                           fill_value=0.0)
-            if not (ring or a2a):
-                packs = pb.packs_for(cfg)
-                if coalesced is not None:
-                    # Shard-local multi-edge coalescing: same device math
-                    # as single-chip (the CoalescedLayouts shard rides the
-                    # shard_map inputs — its host build needed the
-                    # concrete shard graphs, see build_coalesced_shards).
-                    co = _local(ex_stack[0])
-                    ew = pb.coalesce_weights_from(
-                        co, w_fwd, dtype=cfg.compute_dtype, packs=packs)
-                    return jax.tree.map(lambda a: a[None], (att, ew))
-                # Stage the aligned forms straight off w_fwd (the fused
-                # pipeline's tail, as in pb.attention_prepared).
-                if cfg.compute_dtype is not None:
-                    w_fwd = w_fwd.astype(cfg.compute_dtype)
-                w_rev = jnp.take(w_fwd, g.rev_from_fwd, mode="fill",
-                                 fill_value=0.0)
-                ew = pb.EdgeWeights(
-                    fwd=w_fwd, rev=w_rev,
-                    fwd_t=pb._deinterleave_w(w_fwd, packs,
-                                             g.fwd_layout.chunk_edges),
-                    rev_t=pb._deinterleave_w(w_rev, packs,
-                                             g.rev_layout.chunk_edges))
-                return jax.tree.map(lambda a: a[None], (att, ew))
-        else:
-            att = jax.lax.stop_gradient(
-                kgat.compute_attention(params, g, cfg))
+        # Attention is zero-comm under dst partitioning (SURVEY.md §3.2):
+        # each shard runs the single-device attention on its own edges.
+        att = jax.lax.stop_gradient(kgat.compute_attention(params, g, cfg))
         if ring or a2a:
             ex = _local(ex_stack[0])
             wm = att * g.edge_mask
-            if cfg.compute_dtype is not None:
-                wm = wm.astype(cfg.compute_dtype)
             ew = RingWeights(fwd=wm[ex.fwd.gather], rev=wm[ex.rev.gather])
         else:
-            ew = pb.prepare_weights(g, att, dtype=cfg.compute_dtype,
-                                    packs=pb.packs_for(cfg))
+            ew = pb.prepare_weights(g, att)
         return jax.tree.map(lambda a: a[None], (att, ew))
 
     att_in_specs = (P(AXIS), P()) + ((P(AXIS),) if extra is not None else ())
@@ -330,23 +164,28 @@ def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
 
     def _ring_side(rb, ew, chunk):
         """One layer's ring exchange: statically unrolled (reduce, permute)
-        pairs — XLA overlaps the ppermute with the bucket reduce. With the
-        'fused' transport, reduce and send are ONE Pallas kernel: the
-        remote DMA of the chunk flies under the bucket's MXU reduce."""
+        pairs — XLA overlaps the ppermute with the bucket reduce."""
         side = jnp.zeros((R, chunk.shape[1]), jnp.float32)
         for s in range(nP):
             fwdl = jax.tree.map(lambda a: a[s], rb.fwd)
             revl = jax.tree.map(lambda a: a[s], rb.rev)
-            if pspmm_send is not None and s < nP - 1:
-                partial, chunk = pspmm_send(ew.fwd[s], ew.rev[s], chunk,
-                                            fwdl, revl)
-                side = side + partial
-            else:
-                side = side + pspmm(ew.fwd[s], ew.rev[s], None, None,
-                                    chunk, fwdl, revl)
-                if s < nP - 1:
-                    chunk = _ring_shift(chunk)
+            side = side + _bucket_spmm(ew.fwd[s], ew.rev[s], chunk, fwdl,
+                                       revl)
+            if s < nP - 1:
+                chunk = _ring_shift(chunk)
         return side
+
+    def _allgather_side(g, ew, x, p_idx):
+        """The shard's SpMM over the replicated (n_pad, d) features."""
+        rows = g.dst - p_idx * R     # local dst rows (pads carry w == 0)
+        if kernel:
+            low = cfg.compute_dtype
+            return pb.spmm_pieces(
+                ew, x if low is None else x.astype(low), g.fwd_pieces,
+                g.src, rows, R, g.rev_pieces, g.rev_nbr, n_pad,
+                interpret=cfg.interpret)
+        return jax.ops.segment_sum(x[g.src] * ew.fwd[:, None], rows,
+                                   num_segments=R)
 
     def _a2a_table(sh, ego):
         """Selective exchange: ship exactly the rows each peer needs, then
@@ -362,12 +201,6 @@ def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
         ew = _local(ew_stack)
         ex = _local(rb_stack) if extra is not None else None
         p_idx = jax.lax.axis_index(AXIS)
-        # SpMM value-stream dtype: cast ONLY the reduce input, exactly as
-        # the single-device path does (kgat.propagate `x_in`) — bf16
-        # halves the gather+reduce HBM bytes (and, on the ring, the ICI
-        # chunk bytes); aggregator/normalization math stays f32.
-        low = cfg.compute_dtype if cfg.ops_backend == "pallas" else None
-        cast = (lambda v: v) if low is None else (lambda v: v.astype(low))
         ego_g = params["entity_embed"]
         x = jnp.pad(ego_g, ((0, n_pad - N), (0, 0)))
         if a2a:
@@ -383,15 +216,11 @@ def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
         n_layers = len(params["layers"])
         for li, layer in enumerate(params["layers"]):
             if ring:
-                side = _ring_side(ex, ew, cast(ego))
+                side = _ring_side(ex, ew, ego)
             elif a2a:
-                side = pspmm(ew.fwd, ew.rev, None, None, cast(local_x),
-                             ex.fwd, ex.rev)
+                side = _bucket_spmm(ew.fwd, ew.rev, local_x, ex.fwd, ex.rev)
             else:
-                lay_f, lay_r = ((ex.fwd, ex.rev) if coalesced is not None
-                                else (g.fwd_layout, g.rev_layout))
-                side = pspmm(ew.fwd, ew.rev, ew.fwd_t, ew.rev_t, cast(x),
-                             lay_f, lay_r)
+                side = _allgather_side(g, ew, x, p_idx)
                 ego = jax.lax.dynamic_slice(x, (p_idx * R, 0),
                                             (R, x.shape[1]))
             slope = cfg.leaky_relu_slope
@@ -423,7 +252,7 @@ def make_partitioned(mesh: Mesh, pgraph: Graph, info: PartitionInfo,
                 if a2a and li < n_layers - 1:
                     local_x = _a2a_table(ex, ego)
             else:
-                # One all-gather per layer: boundary embeddings ride ICI.
+                # One all-gather per layer of the boundary embeddings.
                 x = jax.lax.all_gather(ego, AXIS, tiled=True)   # (n_pad, d)
                 norm = x[:N] / jnp.sqrt(jnp.maximum(
                     jnp.sum(x[:N] ** 2, -1, keepdims=True), 1e-12))

@@ -1,11 +1,11 @@
 """Multi-host (DCN) execution (SURVEY.md §M5).
 
-On a multi-host pod slice, each host runs this same program;
-`jax.distributed.initialize` forms the process group over DCN and
-`jax.devices()` then spans the whole slice, so the edge-partitioned mesh
+On a multi-host cluster, each host runs this same program;
+`jax.distributed.initialize` forms the process group and `jax.devices()`
+then spans every host, so the edge-partitioned mesh
 (kgat_tpu.parallel.halo) extends across hosts unchanged — the 'ep' axis
-simply covers more devices, with XLA routing intra-slice collectives over
-ICI and cross-host legs over DCN.
+simply covers more devices, with XLA routing intra-host collectives over
+the host's links and cross-host legs over the network.
 
 Host-side data handling: every host loads the dataset and partitions the
 CKG identically (deterministic), then `stack_shards` device_puts only its
@@ -14,7 +14,8 @@ OWN devices' shard slices and assembles the global stacked Graph with
 each shard lands directly on its owning device (also used on one host:
 the stacked graph is born sharded instead of being resharded per step).
 
-Two-host launch (v5e-16, standard pod env vars set by the launcher):
+Two-host launch (the coordinator address, process count and process id
+come from these env vars; nothing infers them):
 
     host0$ COORDINATOR_ADDRESS=host0:8476 NUM_PROCESSES=2 PROCESS_ID=0 \\
            python -m kgat_tpu.train --preset yelp-partitioned
@@ -22,7 +23,7 @@ Two-host launch (v5e-16, standard pod env vars set by the launcher):
            python -m kgat_tpu.train --preset yelp-partitioned
 
 The trainer calls `initialize_distributed()` (a no-op single-process) and
-builds the mesh over `jax.devices()` — the whole slice.
+builds the mesh over `jax.devices()` — every host's devices.
 """
 
 from __future__ import annotations
@@ -43,9 +44,9 @@ def initialize_distributed(coordinator: Optional[str] = None,
                            process_id: Optional[int] = None) -> int:
     """Form the multi-host process group; returns this process's id.
 
-    No-ops on a single process (the common case on this machine). Args
+    No-ops on a single process. Args
     default to the standard env vars (COORDINATOR_ADDRESS, NUM_PROCESSES,
-    PROCESS_ID) that TPU pod launchers set.
+    PROCESS_ID), which the launcher sets.
     """
     coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
     num_processes = num_processes or int(os.environ.get("NUM_PROCESSES", 1))

@@ -11,7 +11,7 @@ every edge pointing into them. Consequences (why dst, not src or 2D):
   parallel: no communication at all.
 * The SpMM segment-reduce is local per device (its output rows are owned);
   the only forward communication is obtaining source-node embeddings,
-  which ride an all-gather over ICI per layer (selective halo all-to-all
+  which ride an all-gather per layer (selective halo all-to-all
   is the planned refinement when tables outgrow replication).
 * SpMM backward's feature gradient lands on arbitrary source rows; the
   shard_map transpose of the all-gather is exactly the reduce-scatter /
@@ -32,8 +32,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from kgat_tpu.graph import (ALIGN_BLOCK_ROWS, ALIGN_CHUNK_EDGES, CKGMeta,
-                            Graph, build_graph, _round_up)
+from kgat_tpu.graph import (ALIGN_BLOCK_ROWS, ALIGN_CHUNK_EDGES, Graph,
+                            build_graph, _round_up)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,13 +49,13 @@ class PartitionInfo:
 class RingBuckets:
     """Per-shard edge buckets in RING-STEP order for the overlapped exchange.
 
-    The SP/CP ring-attention analog for graphs (SURVEY.md §2.3 SP/CP row,
-    [S:98-132] remote-DMA idiom): each device's edges are bucketed by the
+    The SP/CP ring-attention analog for graphs (SURVEY.md §2.3 SP/CP
+    row): each device's edges are bucketed by the
     *source partition block*; at ring step ``s`` device ``p`` holds the
     embedding chunk of partition ``(p - s) mod P`` and reduces exactly the
     bucket stored at index ``s`` — a static index, so the whole ring is a
     statically unrolled loop of (bucket reduce, ppermute) pairs that XLA
-    overlaps (the permute of the next chunk rides ICI while the current
+    overlaps (the permute of the next chunk is in flight while the current
     bucket computes).
 
     ``fwd``/``rev`` are AlignedLayouts whose array leaves carry a leading
@@ -151,17 +151,12 @@ def build_ring_buckets(src: np.ndarray, dst: np.ndarray,
             q = (p - s) % P
             m = (s_src // R) == q
             ids = np.nonzero(m)[0]
-            # packs=(): ring buckets always run the legacy reduce
-            # (w_t=None in halo._ring_side) — don't stage dead index
-            # strips for P^2 bucket layouts.
             fwd = _build_aligned_layout(
                 s_dst[m], s_src[m] - q * R, R, dead,
-                force_chunks=fwd_need, chunk_edges=RING_CHUNK_EDGES,
-                packs=())
+                force_chunks=fwd_need, chunk_edges=RING_CHUNK_EDGES)
             rev = _build_aligned_layout(
                 s_src[m] - q * R, s_dst[m], R, dead,
-                force_chunks=rev_need, chunk_edges=RING_CHUNK_EDGES,
-                packs=())
+                force_chunks=rev_need, chunk_edges=RING_CHUNK_EDGES)
             steps.append(RingBuckets(fwd=_remap_gather(fwd, ids, dead),
                                      rev=_remap_gather(rev, ids, dead)))
         per_shard.append(jax.tree.map(lambda *xs: jnp.stack(xs), *steps))
@@ -283,14 +278,12 @@ def build_selective_halo(src: np.ndarray, dst: np.ndarray,
         for q in range(P):
             rows = need[p][q]
             local_ids[R + q * H: R + q * H + len(rows)] = rows
-        # packs=(): the a2a exchange runs the legacy reduce (w_t=None in
-        # halo.propagate_inner) — skip dead index-strip staging.
         fwd = _build_aligned_layout(
             s_dst, locs[p], R, dead, order=np.arange(n_e, dtype=np.int64),
-            force_chunks=fwd_need, chunk_edges=chunk_edges, packs=())
+            force_chunks=fwd_need, chunk_edges=chunk_edges)
         rev = _build_aligned_layout(locs[p], s_dst, T, dead,
                                     force_chunks=rev_need,
-                                    chunk_edges=chunk_edges, packs=())
+                                    chunk_edges=chunk_edges)
         per_shard.append(SelectiveHalo(
             send_idx=jnp.asarray(send_idx),
             local_ids=jnp.asarray(local_ids.astype(np.int32)),
@@ -301,74 +294,37 @@ def build_selective_halo(src: np.ndarray, dst: np.ndarray,
     return jax.tree.map(lambda *xs: jnp.stack(xs), *per_shard)
 
 
-def build_coalesced_shards(pgraph: Graph, info: PartitionInfo, mesh=None,
-                           cap: int = 8):
-    """Stacked multi-edge-coalesced layouts for partitioned shards.
-
-    pgraph: the stacked Graph from `partition_graph` (it keeps the
-    per-shard host Graphs on `_shards` — coalescing must see the EXACT
-    fwd layouts the stack carries). Segment-row bounds follow the shard
-    conventions (fwd local rows, rev global rows); chunk budgets are
-    forced shard-uniform so the stack is one SPMD pytree. n_pairs is
-    shard-dependent -> -1 sentinel (static fields must be uniform).
-    """
-    import dataclasses as _dc
-
-    from kgat_tpu.graph import build_coalesced_layouts
-
-    pshards = getattr(pgraph, "_shards", None)
-    if pshards is None:
-        raise ValueError("pgraph has no _shards host cache: pass the "
-                         "Graph object partition_graph returned, not a "
-                         "pytree-transformed copy")
-    fwd_need = rev_need = 1
-    pre = []
-    for g in pshards:
-        co = build_coalesced_layouts(g, cap, n_rows_fwd=info.rows_per_part,
-                                     n_rows_rev=info.n_nodes_pad)
-        pre.append(co)
-        fwd_need = max(fwd_need, co.fwd.n_chunks)
-        rev_need = max(rev_need, co.rev.n_chunks)
-    per_shard = []
-    for g, co in zip(pshards, pre):
-        if (co.fwd.n_chunks, co.rev.n_chunks) != (fwd_need, rev_need):
-            co = build_coalesced_layouts(
-                g, cap, n_rows_fwd=info.rows_per_part,
-                n_rows_rev=info.n_nodes_pad,
-                force_fwd_chunks=fwd_need, force_rev_chunks=rev_need)
-        per_shard.append(_dc.replace(co, n_pairs=-1))
-    if mesh is not None:
-        from kgat_tpu.parallel.multihost import stack_pytrees
-        return stack_pytrees(per_shard, mesh, axis=_stack_axis(mesh))
-    return jax.tree.map(lambda *xs: jnp.stack(xs), *per_shard)
+def _pad_pieces(pieces, n: int, sentinel: int):
+    """Pad a shard's RowPieces to n pieces (length 0, row past every
+    output row) so all shards share one SPMD shape."""
+    from kgat_tpu.graph import _pieces, host_array
+    extra = n - pieces.start.shape[0]
+    fill = {"start": 0, "length": 0, "row": sentinel}
+    return _pieces({f: np.concatenate([host_array(pieces, f),
+                                       np.full(extra, v, np.int32)])
+                    for f, v in fill.items()})
 
 
 def partition_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
                     n_nodes: int, n_relations: int, n_parts: int,
-                    mesh=None, chunk_edges: int = ALIGN_CHUNK_EDGES,
-                    rel_block: int = 1024,
+                    mesh=None, rel_block: int = 1024,
                     ) -> Tuple[Graph, PartitionInfo]:
     """Partition edges by destination block into a stacked SPMD Graph.
 
     Returns a Graph whose array leaves have a leading (n_parts,) axis and
     whose static metadata is shard-uniform. Shard-local conventions:
     ``dst`` holds GLOBAL head ids (so attention gathers need no offset);
-    the forward layout's segments are LOCAL rows (0..rows_per_part); the
-    reverse layout's segments are GLOBAL source rows (feature gradients are
-    per-shard partials over the whole table, summed by the all-gather
-    transpose).
+    the forward SpMM pieces sum into LOCAL rows (0..rows_per_part); the
+    reverse pieces sum into GLOBAL source rows and ``rev_nbr`` holds local
+    dst rows (feature gradients are per-shard partials over the whole
+    table, summed by the all-gather transpose).
 
     mesh: when given, leaves are assembled shard-per-device over the
     mesh's leading axis (multihost.stack_pytrees) — required on multi-host
     (each process places only its local shards) and avoids per-step
     resharding on one host.
 
-    chunk_edges / rel_block: aligned-layout chunk size and attention
-    relation-block granularity (graph.build_graph defaults). CPU CI runs
-    the pallas backend under the TPU interpret machinery, whose emulation
-    deadlocks on large per-grid-step blocks / long grids (see
-    tests/test_partition.py); small values keep interpret-emulated kernels
-    inside those limits. Production builds keep the defaults.
+    rel_block: attention relation-block granularity (graph.build_graph).
     """
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
@@ -384,78 +340,50 @@ def partition_graph(src: np.ndarray, dst: np.ndarray, etype: np.ndarray,
 
     # Force shard-uniform shapes/static metadata.
     max_edges = max(len(s[0]) for s in shards)
-    blk = max(2048, chunk_edges)
+    blk = 2048
     edge_pad = max(_round_up(max_edges + blk, blk), blk)
     rel_pad = {}
     for r in range(n_relations):
         m = max(int(np.sum(s[2] == r)) for s in shards)
         if m > 0:
             rel_pad[r] = _round_up(m, rel_block)
-    fwd_chunks = max(max(_needed_chunks((s[1] - p * R), R, chunk_edges)
-                         for p, s in enumerate(shards)), 1)
-    rev_chunks = max(max(_needed_chunks(s[0], info.n_nodes_pad, chunk_edges)
-                         for s in shards), 1)
 
-    built = []
-    for p, (s_src, s_dst, s_ety) in enumerate(shards):
-        g = _build_shard(s_src, s_dst, s_ety, p, info, n_relations,
-                         edge_pad, rel_pad, fwd_chunks, rev_chunks,
-                         chunk_edges, rel_block)
-        built.append(g)
+    built = [_build_shard(s_src, s_dst, s_ety, p, info, n_relations,
+                          edge_pad, rel_pad, rel_block)
+             for p, (s_src, s_dst, s_ety) in enumerate(shards)]
+    sentinel = max(info.n_nodes_pad, n_nodes)
+    for d in ("fwd_pieces", "rev_pieces"):
+        n = max(getattr(g, d).start.shape[0] for g in built)
+        built = [dataclasses.replace(g, **{d: _pad_pieces(getattr(g, d), n,
+                                                          sentinel)})
+                 if getattr(g, d).start.shape[0] != n else g
+                 for g in built]
 
     if mesh is not None:
         from kgat_tpu.parallel.multihost import stack_pytrees
         stacked = stack_pytrees(built, mesh, axis=_stack_axis(mesh))
     else:
         stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *built)
-    # Host cache of the per-shard Graphs: build_coalesced_shards derives
-    # its layouts from the exact shard fwd layouts stacked here.
-    object.__setattr__(stacked, "_shards", built)
     return stacked, info
 
 
 def _build_shard(src, dst, ety, p, info: PartitionInfo, n_relations,
-                 edge_pad, rel_pad, fwd_chunks, rev_chunks,
-                 chunk_edges=ALIGN_CHUNK_EDGES, rel_block=1024) -> Graph:
+                 edge_pad, rel_pad, rel_block=1024) -> Graph:
     """One shard's Graph, in mixed coordinates (see partition_graph)."""
+    from kgat_tpu.graph import host_array
     R = info.rows_per_part
-    # Build against LOCAL dst so canonical order / CSR / fwd layout are
-    # local; then rewrite dst to global and rebuild the reverse layout
-    # against the global row space.
+    # Build against LOCAL dst so canonical order / CSR / forward pieces are
+    # local, with src ids in the global space: build_graph gets the global
+    # bound so its range checks pass (local dst < R <= bound), and its
+    # reverse pieces sum into global src rows.
     g = build_graph(
         src.astype(np.int64), (dst - p * R).astype(np.int64),
         ety.astype(np.int64),
-        # src ids live in the global space; give build_graph the global
-        # bound so its range checks pass (fwd segments use local dst which
-        # is < R <= bound).
         n_nodes=max(info.n_nodes_pad, info.n_nodes_global),
         n_relations=n_relations,
-        rel_block=rel_block, chunk_edges=chunk_edges,
+        rel_block=rel_block,
         force_edge_pad=edge_pad, force_rel_pad=rel_pad,
-        force_fwd_chunks=None, force_rev_chunks=rev_chunks,
     )
-    # Rebuild the forward layout against the LOCAL row count (R) with the
-    # forced chunk budget, and fix CSR/sentinels to local conventions.
-    from kgat_tpu.graph import _build_aligned_layout, host_array
-    n_e = len(src)
-    dst_local_sorted = host_array(g, "dst")[:n_e]  # local (build used local)
-    src_sorted = host_array(g, "src")[:n_e]
-    fwd = _build_aligned_layout(
-        dst_local_sorted.astype(np.int64), src_sorted.astype(np.int64),
-        R, n_e, order=np.arange(n_e, dtype=np.int64),
-        force_chunks=fwd_chunks, chunk_edges=chunk_edges)
-    # Reverse layout: segments = global src, other = LOCAL dst.
-    rev = _build_aligned_layout(
-        src_sorted.astype(np.int64), dst_local_sorted.astype(np.int64),
-        info.n_nodes_pad, n_e, force_chunks=rev_chunks,
-        chunk_edges=chunk_edges)
-
-    from kgat_tpu.graph import cross_layout_perms
-    att_to_fwd, fwd_from_att, rev_from_fwd, canon_to_fwd = \
-        cross_layout_perms(
-            host_array(g, "att_gather"), host_array(fwd, "gather"),
-            host_array(rev, "gather"), n_e, g.n_edges_pad)
-
     # Global dst for attention gathers (sentinel -> global n_nodes).
     mask_h = host_array(g, "edge_mask")
     dst_h = host_array(g, "dst")
@@ -466,34 +394,13 @@ def _build_shard(src, dst, ety, p, info: PartitionInfo, n_relations,
     row_offsets = np.searchsorted(dst_local_pad,
                                   np.arange(R + 2)).astype(np.int32)
 
-    out = Graph(
-        src=g.src,
+    out = dataclasses.replace(
+        g,
         dst=jnp.asarray(dst_global),
-        etype=g.etype,
-        edge_mask=g.edge_mask,
         row_offsets=jnp.asarray(row_offsets),
-        att_gather=g.att_gather,
-        fwd_layout=fwd,
-        rev_layout=rev,
-        att_to_fwd=jnp.asarray(att_to_fwd.astype(np.int32)),
-        fwd_from_att=jnp.asarray(fwd_from_att.astype(np.int32)),
-        rev_from_fwd=jnp.asarray(rev_from_fwd.astype(np.int32)),
-        canon_to_fwd=jnp.asarray(canon_to_fwd.astype(np.int32)),
         n_nodes=info.n_nodes_global,
         n_edges=-1,  # shard-dependent; uniform sentinel for SPMD stacking
-        n_edges_pad=g.n_edges_pad,
-        n_relations=g.n_relations,
-        rel_blocks=g.rel_blocks,
     )
-    # Host mirrors (host_array's D2H fallback is pathological on TPU).
     object.__setattr__(out, "_host", {
-        "src": host_array(g, "src"), "dst": dst_global,
-        "etype": host_array(g, "etype"), "edge_mask": mask_h,
-        "att_gather": host_array(g, "att_gather"),
-        "row_offsets": row_offsets,
-        "att_to_fwd": att_to_fwd.astype(np.int32),
-        "fwd_from_att": fwd_from_att.astype(np.int32),
-        "rev_from_fwd": rev_from_fwd.astype(np.int32),
-        "canon_to_fwd": canon_to_fwd.astype(np.int32),
-    })
+        **g._host, "dst": dst_global, "row_offsets": row_offsets})
     return out

@@ -2,7 +2,7 @@
 
 The reference samples on the host with numpy rejection sampling
 (SURVEY.md §2.1 CF/KG batch sampler rows, §3.3/§3.4). This module provides
-both that host path (bit-compatible semantics) and the TPU-native
+both that host path (bit-compatible semantics) and a
 **device-side sampler** the north-star requires (BASELINE.json:5
 "minibatch BPR sampler -> device-side negative sampling"): uniform draws
 with `jax.random`, membership tests via vectorized binary search over the

@@ -48,7 +48,6 @@ class TrainConfig:
                                         # split into dp_replicas batch-
                                         # parallel groups of ep shards
     halo_exchange: str = "allgather"    # allgather | ring | a2a
-    ring_transport: str = "ppermute"    # ppermute | dma | fused (ring only)
     pretrain_path: Optional[str] = None  # npz with user_embed/item_embed
     profile_epochs: int = 0             # capture a jax.profiler trace
     graph_cache: Optional[str] = None   # dir for built-graph npz cache
@@ -72,27 +71,23 @@ PRESETS = {
     ),
     # 2: reference recipe, 3-layer bi-interaction
     "lastfm-bi": dict(dataset="last-fm",
-                      model=KGATConfig(aggregator="bi-interaction",
-                                       ops_backend="pallas")),
+                      model=KGATConfig(aggregator="bi-interaction")),
     # 3: GraphSage ablation on Amazon-book
     "amazon-graphsage": dict(dataset="amazon-book",
-                             model=KGATConfig(aggregator="graphsage",
-                                              ops_backend="pallas")),
+                             model=KGATConfig(aggregator="graphsage")),
     # 4: Yelp2018 with device-side BPR sampling
     "yelp-device-sampling": dict(dataset="yelp2018", sampler="device",
                                  model=KGATConfig(
-                                     aggregator="bi-interaction",
-                                     ops_backend="pallas")),
+                                     aggregator="bi-interaction")),
     # 5: edge-partitioned multi-device Yelp2018
     "yelp-partitioned": dict(dataset="yelp2018", sampler="device",
                              n_devices=0,  # 0 = use all available
-                             model=KGATConfig(aggregator="bi-interaction",
-                                              ops_backend="pallas")),
+                             model=KGATConfig(aggregator="bi-interaction")),
 }
 
 
 def parse_args(argv=None) -> TrainConfig:
-    p = argparse.ArgumentParser(description="KGAT-TPU trainer")
+    p = argparse.ArgumentParser(description="KGAT trainer")
     p.add_argument("--preset", choices=sorted(PRESETS), default=None)
     p.add_argument("--dataset", default=None)
     p.add_argument("--data-root", default=None)
@@ -107,19 +102,10 @@ def parse_args(argv=None) -> TrainConfig:
                    help="L2 reg on CF embeddings (reference --regs[0])")
     p.add_argument("--reg-kg", type=float, default=None,
                    help="L2 reg on TransR triples (reference --regs[1])")
-    p.add_argument("--ops-backend", default=None, choices=["ref", "pallas"])
-    p.add_argument("--att-impl", default=None,
-                   choices=["auto", "dense", "relblock"],
-                   help="attention logits route (pallas backend): dense "
-                        "per-relation projected tables vs the relation-"
-                        "blocked SDDMM kernel; auto picks by table size")
-    p.add_argument("--no-coalesce", action="store_true",
-                   help="disable multi-edge coalescing of the SpMM hot "
-                        "loop (single-device pallas backend)")
     p.add_argument("--compute-dtype", default=None,
                    choices=["f32", "bf16"],
-                   help="SpMM value-stream dtype (pallas backend); bf16 "
-                        "halves the HBM traffic of the hot loop")
+                   help="SpMM feature-stream dtype of the GPU kernel; bf16 "
+                        "halves the bytes it gathers (f32 accumulation)")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--cf-batch-size", type=int, default=None)
     p.add_argument("--kg-batch-size", type=int, default=None)
@@ -154,13 +140,6 @@ def parse_args(argv=None) -> TrainConfig:
                         "all-gather (dense fast path), the overlapped "
                         "ring of bucket reduces, or selective halo "
                         "all-to-all (tables too large to replicate)")
-    p.add_argument("--ring-transport", default=None,
-                   choices=["ppermute", "dma", "fused"],
-                   help="ring-exchange chunk transport: XLA's async "
-                        "collective-permute, the hand-rolled Pallas "
-                        "remote-DMA kernel (send/recv semaphores), or "
-                        "the fused reduce+send kernel (DMA hidden under "
-                        "the bucket's MXU reduce)")
     p.add_argument("--use-pretrain", dest="pretrain_path", default=None,
                    help="npz with user_embed/item_embed (BPR-MF init)")
     p.add_argument("--profile-epochs", type=int, default=None,
@@ -180,7 +159,7 @@ def parse_args(argv=None) -> TrainConfig:
                   "k", "seed", "sampler", "sparse_adam", "log_dir",
                   "run_name", "n_devices",
                   "dp_replicas",
-                  "halo_exchange", "ring_transport", "pretrain_path",
+                  "halo_exchange", "pretrain_path",
                   "profile_epochs",
                   "graph_cache", "syn_users",
                   "syn_items", "syn_entities", "syn_relations",
@@ -208,12 +187,6 @@ def parse_args(argv=None) -> TrainConfig:
         m["reg_cf"] = a.reg_cf
     if a.reg_kg is not None:
         m["reg_kg"] = a.reg_kg
-    if a.ops_backend:
-        m["ops_backend"] = a.ops_backend
-    if a.att_impl:
-        m["att_impl"] = a.att_impl
-    if a.no_coalesce:
-        m["coalesce"] = False
     if a.compute_dtype:
         import jax.numpy as jnp
         m["compute_dtype"] = (jnp.bfloat16 if a.compute_dtype == "bf16"

@@ -6,7 +6,7 @@ Counterpart of the reference's metrics module (SURVEY.md §2.1 evaluator row,
 binary relevance, log2 discount, IDCG from min(K, |test[u]|).
 
 Device-friendly: everything below is jnp over fixed shapes, so the whole
-evaluation (scores -> top-K -> metrics) runs jitted on TPU; only the final
+evaluation (scores -> top-K -> metrics) runs jitted on the device; only the final
 per-user reductions come back to host.
 """
 

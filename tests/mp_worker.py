@@ -17,30 +17,19 @@ Prints one RESULT line; the test asserts every process (and the
 single-process oracle, ``nproc=1``) agrees on the losses and the
 propagated-embedding fingerprint.
 
-Usage: python mp_worker.py <pid> <nproc> <port> [backend] [ndev]
+Usage: python mp_worker.py <pid> <nproc> <port> [ndev]
 
-backend: ref (default) or pallas — pallas runs the PRODUCTION kernel
-backend (interpret-emulated on CPU) with its activation exchanges crossing
-the real process boundary, at the CI tile sizes test_partition_pallas.py
-documents (d=16, chunk_edges=256); ndev is the GLOBAL mesh size
-(default 8; the pallas test uses 4 = 2 procs x 2 devices to stay inside
-the interpret machinery's emulation limits).
+ndev is the GLOBAL mesh size (default 8).
 """
 
 import os
 import sys
 
 pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-backend = sys.argv[4] if len(sys.argv) > 4 else "ref"
-ndev = int(sys.argv[5]) if len(sys.argv) > 5 else 8
+ndev = int(sys.argv[4]) if len(sys.argv) > 4 else 8
 per = ndev // nproc
-# The interpret machinery DEADLOCKS when the mesh occupies every virtual
-# device (its callbacks need a free device thread; measured r4 — one
-# spare suffices). Give each process one spare device on pallas; the mesh
-# below then uses only the first `per` local devices of each process.
-spare = 1 if backend == "pallas" else 0
 os.environ["XLA_FLAGS"] = (
-    f"--xla_force_host_platform_device_count={per + spare} "
+    f"--xla_force_host_platform_device_count={per} "
     + os.environ.get("XLA_FLAGS", ""))
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["JAX_PLATFORM_NAME"] = "cpu"
@@ -53,8 +42,8 @@ from kgat_tpu.parallel.multihost import initialize_distributed  # noqa: E402
 
 if nproc > 1:
     initialize_distributed(f"localhost:{port}", nproc, pid)
-assert jax.device_count() == nproc * (per + spare), jax.devices()
-assert jax.local_device_count() == per + spare
+assert jax.device_count() == nproc * per, jax.devices()
+assert jax.local_device_count() == per
 assert jax.process_index() == pid
 
 import numpy as np  # noqa: E402
@@ -76,15 +65,7 @@ ds = synthetic_dataset(seed=11, n_users=48, n_items=40, n_entities=80,
                        n_relations_kg=4, n_interactions=500, n_triples=400)
 g, meta = ds.build()
 coo = host_coo(g)
-if backend == "pallas":
-    # CI tile sizes for the interpret machinery (test_partition_pallas.py).
-    cfg = kgat.KGATConfig(ops_backend="pallas", embed_dim=16,
-                          relation_dim=16, conv_dims=(16, 16),
-                          mess_dropout=(0.0, 0.0))
-    part_kw = dict(chunk_edges=256, rel_block=256)
-else:
-    cfg = kgat.KGATConfig(ops_backend="ref")
-    part_kw = {}
+cfg = kgat.KGATConfig(ops_backend="ref")
 params = jax.tree.map(np.asarray, kgat.init_params(
     jax.random.key(0), meta.n_nodes, meta.n_relations, cfg))
 
@@ -92,24 +73,12 @@ def _mark(msg):  # progress markers: diagnose hangs under timeouts
     print(f"# pid={pid} {msg}", file=sys.stderr, flush=True)
 
 
-if spare:
-    # Mesh over the first `per` local devices of each process, in process
-    # order — leaves each process's spare device outside the mesh.
-    by_proc = {}
-    for d in jax.devices():
-        by_proc.setdefault(d.process_index, []).append(d)
-    mesh_devs = [d for p in sorted(by_proc) for d in by_proc[p][:per]]
-    mesh = jax.make_mesh((ndev,), (AXIS,),
-                         axis_types=(jax.sharding.AxisType.Auto,),
-                         devices=mesh_devs)
-else:
-    mesh = make_mesh(ndev, axis=AXIS)
+mesh = make_mesh(ndev, axis=AXIS)
 my_shards = [i for i, d in enumerate(mesh.devices.flat)
              if d.process_index == pid]
 assert len(my_shards) == per
 pg, info = partition_graph(coo["src"], coo["dst"], coo["etype"],
-                           meta.n_nodes, meta.n_relations, ndev, mesh=mesh,
-                           **part_kw)
+                           meta.n_nodes, meta.n_relations, ndev, mesh=mesh)
 _mark("partitioned")
 attention, propagate_eval, make_cf_step, make_cf_scan = make_partitioned(
     mesh, pg, info, meta, cfg)
@@ -138,16 +107,10 @@ _mark("kg step done")
 
 # The production hot loop: device-resident chunked CF scan (pre-jitted,
 # global graph passed through the jit boundary — see halo.make_cf_scan).
-# Skipped on the pallas backend: lax.scan of interpret-emulated kernels
-# + per-step psums starves XLA's collective rendezvous (3-of-4 threads
-# arrive -> 40 s termination abort; r4 measurement, spare devices don't
-# help). Single steps ARE exercised above; scans are covered on the ref
-# backend here and by the real-chip trainer.
-if backend != "pallas":
-    scan = make_cf_scan(opt, cf_table, 16)
-    _, _, cf_sum = scan(params3, opt.init(params3), ew,
-                        jax.random.split(jax.random.key(4), 3))
-    assert np.isfinite(float(cf_sum))
+scan = make_cf_scan(opt, cf_table, 16)
+_, _, cf_sum = scan(params3, opt.init(params3), ew,
+                    jax.random.split(jax.random.key(4), 3))
+assert np.isfinite(float(cf_sum))
 
 print(f"RESULT pid={pid} nproc={nproc} shards={my_shards} "
       f"cf={float(cf_l):.8f} kg={float(kg_l):.8f} fp={fp:.6f}", flush=True)

@@ -86,14 +86,12 @@ def test_graph_cache_roundtrip(tmp_path):
             g2.rel_blocks) == (g.n_nodes, g.n_edges, g.n_edges_pad,
                                g.n_relations, g.rel_blocks)
     for f in ("src", "dst", "etype", "edge_mask", "row_offsets",
-              "att_gather", "att_to_fwd", "rev_from_fwd"):
+              "att_gather", "rev_nbr", "rev_perm"):
         np.testing.assert_array_equal(np.asarray(getattr(g2, f)),
                                       np.asarray(getattr(g, f)), err_msg=f)
-    for pre in ("fwd_layout", "rev_layout"):
+    for pre in ("fwd_pieces", "rev_pieces"):
         a, b = getattr(g, pre), getattr(g2, pre)
-        assert (a.n_chunks, a.n_blocks, a.chunk_edges) == \
-            (b.n_chunks, b.n_blocks, b.chunk_edges)
-        for f in ("gather", "node", "seg", "bounds", "chunk_block"):
+        for f in ("start", "length", "row"):
             np.testing.assert_array_equal(np.asarray(getattr(b, f)),
                                           np.asarray(getattr(a, f)),
                                           err_msg=f"{pre}.{f}")

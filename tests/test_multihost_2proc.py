@@ -44,11 +44,11 @@ def _env() -> dict:
     return env
 
 
-def _run(pid: int, nproc: int, port: int, backend: str = "ref",
-         ndev: int = 8) -> subprocess.Popen:
+def _run(pid: int, nproc: int, port: int, ndev: int = 8
+         ) -> subprocess.Popen:
     return subprocess.Popen(
         [sys.executable, _WORKER, str(pid), str(nproc), str(port),
-         backend, str(ndev)],
+         str(ndev)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=_env())
 
@@ -92,73 +92,6 @@ def test_two_process_partitioned_training_matches_single():
     assert fp0 == pytest.approx(fp_s, rel=1e-5)
 
 
-def test_two_process_pallas_fails_fast_with_clear_error():
-    """The PRODUCTION (pallas) kernel backend across a REAL 2-process
-    group (VERDICT r3 item 4) — resolved by MEASUREMENT, not by a green
-    run: interpret-emulated kernels inside shard_map deadlock whenever
-    the mesh spans more than one OS process (kernels alone — no
-    collectives, spare devices or not; isolation matrix in
-    interp_mp_repro.py, canary below). The machinery's emulation state
-    is process-local; on real TPUs the kernels are Mosaic-compiled and
-    unaffected. The framework must therefore fail FAST with a clear
-    error instead of hanging a pod-simulation test for its full timeout
-    (which is what happened before the halo.py guard)."""
-    port = _free_port()
-    workers = [_run(p, 2, port, backend="pallas", ndev=4) for p in range(2)]
-    outs = [_communicate(w) for w in workers]
-    for w, o in zip(workers, outs):
-        assert w.returncode != 0, "expected the fail-fast guard to fire"
-        assert "cannot run on a mesh spanning 2 processes" in o, o[-2000:]
-
-    # Single-process pallas (with its spare device) remains fully
-    # functional — the partitioned oracle the 4/8-way CI tests rely on.
-    oracle = _run(0, 1, port, backend="pallas", ndev=4)
-    out = _communicate(oracle)
-    assert oracle.returncode == 0, f"pallas oracle failed:\n{out[-3000:]}"
-    _parse(out)
-
-
-_REPRO = os.path.join(os.path.dirname(__file__), "interp_mp_repro.py")
-
-
-def test_interp_machinery_multiprocess_canary():
-    """Upstream canary for the limitation the guard encodes: a trivial
-    interpret-mode kernel inside shard_map across 2 real processes still
-    deadlocks, while the same program's collective-only variant passes.
-    If a jax upgrade makes the kernel variant pass, THIS test fails —
-    signal to delete the halo.py multi-process guard and run the full
-    2-process pallas suite."""
-    def both(mode, timeout):
-        port = _free_port()
-        procs = [subprocess.Popen(
-            [sys.executable, _REPRO, str(p), "2", str(port), mode],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env=_env()) for p in range(2)]
-        outs = []
-        for p in procs:
-            try:
-                outs.append((p.communicate(timeout=timeout)[0], p.returncode))
-            except subprocess.TimeoutExpired:
-                p.kill()  # exact PID we started
-                outs.append((p.communicate()[0], None))
-        return outs
-
-    ok = both("collective_only", timeout=120)
-    for out, rc in ok:
-        assert rc == 0 and "RESULT" in out, \
-            f"collective_only should pass:\n{out[-2000:]}"
-    # The deadlock manifests as a hang (rc None after the timeout kill)
-    # OR as XLA's 40 s rendezvous-termination abort taking down one
-    # process (the peer then dies on the coordination channel). Either
-    # way it must NOT succeed; both-succeed means upstream fixed it.
-    hung = both("kernel_only", timeout=90)
-    assert not all(rc == 0 and "RESULT" in o for o, rc in hung), (
-        "interpret-mode kernels now RUN across process boundaries — "
-        "upstream fixed the machinery; lift the halo.py multi-process "
-        "guard and enable the full 2-process pallas tests. Outputs:\n"
-        + "\n".join(o[-500:] for o, _ in hung))
-
-
 def test_two_process_train_cli(tmp_path):
     """The FULL train CLI on a real 2-process group: process-group
     formation precedes any device access (main() calls
@@ -176,7 +109,7 @@ def test_two_process_train_cli(tmp_path):
         "NUM_PROCESSES": "2",
     })
     args = [sys.executable, "-m", "kgat_tpu.train",
-            "--dataset", "synthetic", "--ops-backend", "ref",
+            "--dataset", "synthetic",
             "--epochs", "2", "--eval-every", "2",
             "--log-dir", str(tmp_path), "--run-name", "cli2p"]
     procs = []

@@ -108,14 +108,9 @@ def test_gspmm_matches_oracle(rng, msg, reduce, backend):
         wv = (0.5 + rng.random(g.n_edges_pad)).astype(np.float32)  # nonzero
     else:
         wv = w
-    if backend == "pallas":
-        from jax.experimental.pallas import tpu as pltpu
-        with pltpu.force_tpu_interpret_mode():
-            out = np.asarray(be.gspmm(g, msg, reduce, jnp.asarray(x),
-                                      jnp.asarray(wv)))
-    else:
-        out = np.asarray(be.gspmm(g, msg, reduce, jnp.asarray(x),
-                                  jnp.asarray(wv)))
+    kw = {"interpret": True} if backend == "pallas" else {}
+    out = np.asarray(be.gspmm(g, msg, reduce, jnp.asarray(x),
+                              jnp.asarray(wv), **kw))
     src, dst = np.asarray(g.src), np.asarray(g.dst)
     want = np.zeros((g.n_nodes, d) if out.ndim == 2 else (g.n_nodes,),
                     np.float32)

@@ -27,8 +27,8 @@ def setup():
     mesh = make_mesh(8, axis=AXIS)
     pg, info = partition_graph(src, dst, ety, meta.n_nodes,
                                meta.n_relations, 8)
-    # ref backend: interpret-mode Pallas inside shard_map hangs on CPU;
-    # the pallas+shard_map composition is exercised on the real TPU.
+    # ref backend here; the kernel inside shard_map is
+    # tests/test_partition_pallas.py.
     cfg = KGATConfig(ops_backend="ref")
     params = kgat.init_params(jax.random.key(0), meta.n_nodes,
                               meta.n_relations, cfg)
@@ -210,23 +210,20 @@ def test_partitioned_scan_matches_per_step(setup):
                                np.asarray(p2["entity_embed"]), atol=2e-6)
 
 
-@pytest.mark.parametrize("exchange,transport", [
-    ("allgather", "ppermute"), ("ring", "ppermute"), ("a2a", "ppermute"),
-    ("ring", "dma"), ("ring", "fused")])
-def test_partitioned_trainer_e2e(tmp_path, exchange, transport):
+@pytest.mark.parametrize("exchange", ["allgather", "ring", "a2a"],
+                         ids=["allgather-ppermute", "ring-ppermute",
+                              "a2a-ppermute"])
+def test_partitioned_trainer_e2e(tmp_path, exchange):
     """Config 5's shape: multi-device trainer with edge-partitioned CF
-    phase + DP KG phase, driven end-to-end for two epochs — including
-    the hand-rolled remote-DMA ring transports (small dims keep the
-    interpret-emulated kernel blocks under the 64x128 CPU limit)."""
-    from jax.experimental.pallas import tpu as pltpu
+    phase + DP KG phase, driven end-to-end for two epochs over each
+    boundary exchange (the ring's chunk shifts are XLA ppermutes)."""
     from kgat_tpu.train import Trainer
     from kgat_tpu.utils.config import TrainConfig
 
-    pltpu.reset_tpu_interpret_mode_state()
     cfg = TrainConfig(
         dataset="synthetic", epochs=2, eval_every=2, lr=5e-3,
         cf_batch_size=64, kg_batch_size=64, n_devices=8, seed=5,
-        halo_exchange=exchange, ring_transport=transport,
+        halo_exchange=exchange,
         log_dir=str(tmp_path),
         syn_users=50, syn_items=40, syn_entities=80, syn_relations=3,
         syn_interactions=500, syn_triples=400,
@@ -294,150 +291,6 @@ def test_selective_halo_matches_single(setup):
         return optax.apply_updates(params, updates), loss
 
     p_s, loss_s = single(jax.tree.map(jnp.copy, params), opt.init(params))
-    np.testing.assert_allclose(float(loss_p), float(loss_s), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(p_p["entity_embed"]),
-                               np.asarray(p_s["entity_embed"]), atol=2e-5)
-
-
-def test_ring_dma_transport_matches_single(setup):
-    """exchange='ring' with the hand-rolled remote-DMA transport
-    (ops/pallas/remote_ring.py) must reproduce single-device propagation
-    and the CF step — forward DMAs and their VJP-transposed counterparts
-    both ride the emulated interpret-mode ICI on the CPU mesh."""
-    from kgat_tpu.parallel.partition import build_ring_buckets
-    from kgat_tpu.graph import host_coo
-
-    g, meta, mesh, pg, info, cfg, params = setup
-    coo = host_coo(g)
-    rb = build_ring_buckets(coo["src"], coo["dst"], info)
-
-    # The interpret machinery's shared-memory/vector-clock state is global
-    # and grows with every emulated kernel call in the process; clear it so
-    # this test's DMA emulation doesn't crawl behind earlier tests' state.
-    from jax.experimental.pallas import tpu as pltpu
-    pltpu.reset_tpu_interpret_mode_state()
-
-    att_s = kgat.compute_attention(params, g, cfg)
-    emb_s = kgat.propagate(params, g, att_s, cfg)
-
-    attention, propagate_eval, make_cf_step, _ = make_partitioned(
-        mesh, pg, info, meta, cfg, exchange="ring", ring_buckets=rb,
-        ring_transport="dma")
-    _, rw = attention(pg, params)
-    emb_p = propagate_eval(rw, params)
-    np.testing.assert_allclose(np.asarray(emb_p), np.asarray(emb_s),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_ring_dma_cf_step_matches_single(setup):
-    """CF step parity with the DMA transport: the optimizer update
-    differentiates through the ring, so the cotangent rides the
-    reverse-direction DMA kernel. One conv layer keeps the interpret-
-    emulated DMA count (7 fwd + 7 bwd kernels in one compiled step)
-    CI-sized — the 3-layer grad program takes >25 min under the
-    Python-level DMA emulation."""
-    from kgat_tpu.parallel.partition import build_ring_buckets
-    from kgat_tpu.graph import host_coo
-    from jax.experimental.pallas import tpu as pltpu
-
-    g, meta, mesh, pg, info, cfg, params = setup
-    coo = host_coo(g)
-    rb = build_ring_buckets(coo["src"], coo["dst"], info)
-    pltpu.reset_tpu_interpret_mode_state()
-
-    cfg0 = KGATConfig(ops_backend="ref", conv_dims=(16,),
-                      mess_dropout=(0.0,))
-    params0 = kgat.init_params(jax.random.key(4), meta.n_nodes,
-                               meta.n_relations, cfg0)
-    attention0, _, make_cf_step0, _ = make_partitioned(
-        mesh, pg, info, meta, cfg0, exchange="ring", ring_buckets=rb,
-        ring_transport="dma")
-    _, rw0 = attention0(pg, params0)
-    opt = optax.adam(1e-3)
-    B = 32
-    u = jnp.arange(B, dtype=jnp.int32) % meta.n_users
-    ip = jnp.arange(B, dtype=jnp.int32) % meta.n_items
-    ineg = (jnp.arange(B, dtype=jnp.int32) + 3) % meta.n_items
-    w = jnp.ones(B)
-    rng = jax.random.key(9)
-    step = make_cf_step0(opt)
-    p_p, _, loss_p = step(jax.tree.map(jnp.copy, params0),
-                          opt.init(params0), rw0, u, ip, ineg, w, rng)
-    # Block before the eager single-device ops below: their per-op GIL
-    # acquisitions starve the interpret machinery's emulation threads
-    # (vector-clock joins), turning the async step's tail into a crawl.
-    jax.block_until_ready((p_p, loss_p))
-
-    att0 = kgat.compute_attention(params0, g, cfg0)
-
-    @jax.jit
-    def single(params, opt_state):
-        loss, grads = jax.value_and_grad(
-            lambda p: kgat.cf_loss(p, g, att0, meta, u, ip, ineg, cfg0,
-                                   rng=rng, train=True, weight=w))(params)
-        updates, opt_state = opt.update(grads, opt_state)
-        return optax.apply_updates(params, updates), loss
-
-    p_s, loss_s = single(jax.tree.map(jnp.copy, params0), opt.init(params0))
-    np.testing.assert_allclose(float(loss_p), float(loss_s), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(p_p["entity_embed"]),
-                               np.asarray(p_s["entity_embed"]), atol=2e-5)
-
-
-def test_ring_fused_transport_matches_single(setup):
-    """exchange='ring' with the FUSED reduce+send transport: one Pallas
-    kernel per ring step does the bucket reduce while the chunk's remote
-    DMA is in flight; propagation and the grad-bearing CF step must match
-    single-device. Small dims (d=16) keep every per-grid-step vals block
-    at 32x128 — the interpret machinery deadlocks on >=64x128 blocks
-    under shard_map (CPU emulation limit; tpu_smoke covers real dims)."""
-    from kgat_tpu.parallel.partition import build_ring_buckets
-    from kgat_tpu.graph import host_coo
-    from jax.experimental.pallas import tpu as pltpu
-
-    g, meta, mesh, pg, info, _cfg, _params = setup
-    coo = host_coo(g)
-    rb = build_ring_buckets(coo["src"], coo["dst"], info)
-    pltpu.reset_tpu_interpret_mode_state()
-
-    cfg0 = KGATConfig(ops_backend="ref", embed_dim=16, relation_dim=16,
-                      conv_dims=(16,), mess_dropout=(0.0,))
-    params0 = kgat.init_params(jax.random.key(6), meta.n_nodes,
-                               meta.n_relations, cfg0)
-    att_s = kgat.compute_attention(params0, g, cfg0)
-    emb_s = kgat.propagate(params0, g, att_s, cfg0)
-
-    attention, propagate_eval, make_cf_step, _ = make_partitioned(
-        mesh, pg, info, meta, cfg0, exchange="ring", ring_buckets=rb,
-        ring_transport="fused")
-    _, rw = attention(pg, params0)
-    emb_p = propagate_eval(rw, params0)
-    np.testing.assert_allclose(np.asarray(emb_p), np.asarray(emb_s),
-                               rtol=1e-4, atol=1e-4)
-
-    # Grad-bearing step: the VJP is the reverse-layout reduce plus the
-    # reverse-direction shift of the next-chunk cotangent.
-    opt = optax.adam(1e-3)
-    B = 32
-    u = jnp.arange(B, dtype=jnp.int32) % meta.n_users
-    ip = jnp.arange(B, dtype=jnp.int32) % meta.n_items
-    ineg = (jnp.arange(B, dtype=jnp.int32) + 3) % meta.n_items
-    w = jnp.ones(B)
-    rng = jax.random.key(9)
-    step = make_cf_step(opt)
-    p_p, _, loss_p = step(jax.tree.map(jnp.copy, params0),
-                          opt.init(params0), rw, u, ip, ineg, w, rng)
-    jax.block_until_ready((p_p, loss_p))  # see test_ring_dma_cf_step note
-
-    @jax.jit
-    def single(params, opt_state):
-        loss, grads = jax.value_and_grad(
-            lambda p: kgat.cf_loss(p, g, att_s, meta, u, ip, ineg, cfg0,
-                                   rng=rng, train=True, weight=w))(params)
-        updates, opt_state = opt.update(grads, opt_state)
-        return optax.apply_updates(params, updates), loss
-
-    p_s, loss_s = single(jax.tree.map(jnp.copy, params0), opt.init(params0))
     np.testing.assert_allclose(float(loss_p), float(loss_s), rtol=1e-5)
     np.testing.assert_allclose(np.asarray(p_p["entity_embed"]),
                                np.asarray(p_s["entity_embed"]), atol=2e-5)

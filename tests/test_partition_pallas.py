@@ -1,18 +1,8 @@
-"""The PRODUCTION multi-chip configuration under CPU CI: pallas backend
-inside shard_map, emulated by the TPU interpret machinery (SURVEY.md §4.3's
-fake-multi-chip rule extended to kernels, as tests/test_remote_ring.py does
-for the DMA transports).
-
-Sizing notes (CPU emulation limits, measured on this 4-CPU host):
-* per-grid-step blocks >= (128, 128) deadlock the machinery under
-  shard_map -> d=16 features + chunk_edges=256 keep vals blocks at 32x128;
-* the machinery deadlocks when the mesh occupies EVERY virtual device
-  (its callbacks need one free device thread — r4 measurement superseding
-  r3's 'grid > ~6 steps starves 8 devices' note, which was wrong): this
-  process has 8 conftest devices, so these tests use a 4-device mesh.
-  The 8-way decomposition runs in test_partition_pallas_8way.py's
-  subprocess (9 devices, one spare), and parallel/halo.py fails fast on
-  the all-devices configuration.
+"""The multi-device configuration with the SpMM kernel: the pallas backend
+inside shard_map, each shard running the CSR kernel over its own pieces
+(in the Pallas interpreter on CPU), compared with the single-device kernel
+path and the XLA reference. A 4-device mesh keeps the interpreter quick;
+tests/test_partition_pallas_8way.py covers all 8 devices.
 """
 
 import dataclasses
@@ -22,7 +12,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from kgat_tpu.data import synthetic_dataset
 from kgat_tpu.graph import host_coo
@@ -47,13 +36,14 @@ def setup():
     mesh = make_mesh(N, axis=AXIS)
     pg, info = partition_graph(coo["src"], coo["dst"], coo["etype"],
                                meta.n_nodes, meta.n_relations, N,
-                               chunk_edges=256, rel_block=256)
-    cfg = KGATConfig(ops_backend="pallas", embed_dim=16, relation_dim=16,
-                     conv_dims=(16, 16), mess_dropout=(0.0, 0.0))
+                               rel_block=256)
+    cfg = KGATConfig(ops_backend="pallas", interpret=True, embed_dim=16,
+                     relation_dim=16, conv_dims=(16, 16),
+                     mess_dropout=(0.0, 0.0))
     params = kgat.init_params(jax.random.key(2), meta.n_nodes,
                               meta.n_relations, cfg)
     # Single-device oracles on the SAME params: the XLA ref path and the
-    # single-device pallas path (also interpret-emulated on CPU).
+    # single-device pallas path (also interpreted on CPU).
     cfg_ref = dataclasses.replace(cfg, ops_backend="ref")
     att_ref = jax.jit(
         lambda p: kgat.compute_attention(p, g, cfg_ref))(params)
@@ -66,14 +56,13 @@ def test_partitioned_pallas_matches_single_pallas_and_ref(setup):
     """partitioned-pallas == single-device-pallas == ref for attention +
     propagate (VERDICT r2 item 1's 'done' criterion)."""
     ds, g, meta, coo, mesh, pg, info, cfg, params, att_ref, emb_ref = setup
-    pltpu.reset_tpu_interpret_mode_state()
 
     attention, propagate_eval, _, _ = make_partitioned(
         mesh, pg, info, meta, cfg)
     att_stack, ew_stack = attention(pg, params)
     emb_p = propagate_eval(ew_stack, params)
 
-    # Single-device pallas (fused attention pipeline + packed SpMM).
+    # Single-device pallas (XLA attention + the CSR SpMM kernel).
     ew_s = jax.jit(
         lambda p: kgat.attention_for_training(p, g, cfg))(params)
     emb_s = jax.jit(
@@ -110,7 +99,6 @@ def test_partitioned_pallas_cf_step_matches_single(setup):
     """One grad-bearing CF step through the pallas kernels' custom VJPs
     inside shard_map == the single-device pallas step."""
     ds, g, meta, coo, mesh, pg, info, cfg, params, att_ref, emb_ref = setup
-    pltpu.reset_tpu_interpret_mode_state()
     opt = optax.adam(1e-3)
     B = 16
     u = jnp.arange(B, dtype=jnp.int32) % meta.n_users
@@ -145,11 +133,10 @@ def test_partitioned_pallas_cf_step_matches_single(setup):
 
 @pytest.mark.parametrize("exchange", ["ring", "a2a"])
 def test_partitioned_pallas_exchanges_match_ref(setup, exchange):
-    """The overlapped ring and selective-halo a2a exchanges with the
-    pallas reduce kernels (fused attention staged into bucket layouts)
-    reproduce the single-device result."""
+    """The overlapped ring and selective-halo a2a exchanges (XLA bucket
+    reduces, under the pallas config) reproduce the single-device
+    result."""
     ds, g, meta, coo, mesh, pg, info, cfg, params, att_ref, emb_ref = setup
-    pltpu.reset_tpu_interpret_mode_state()
     if exchange == "ring":
         extra = dict(ring_buckets=build_ring_buckets(
             coo["src"], coo["dst"], info))
@@ -164,69 +151,21 @@ def test_partitioned_pallas_exchanges_match_ref(setup, exchange):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("transport", ["dma", "fused"])
-def test_2d_mesh_ring_transports_match_single(setup, transport):
-    """Ring exchange with the hand-rolled DMA transports on a 2D (dp, ep)
-    mesh — the production pod layout: each dp row runs an independent
-    ring (the kernels address peers by full mesh coordinates). Propagation
-    must match the single-device result on both rows (VERDICT r2 item 8)."""
-    ds, g, meta, coo, mesh, pg4, info4, cfg, params, att_ref, emb_ref = setup
-    pltpu.reset_tpu_interpret_mode_state()
-    mesh2d = jax.make_mesh((2, 2), ("dp", AXIS), axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    pg, info = partition_graph(coo["src"], coo["dst"], coo["etype"],
-                               meta.n_nodes, meta.n_relations, 2,
-                               chunk_edges=256, rel_block=256)
-    rb = build_ring_buckets(coo["src"], coo["dst"], info)
-    cfg1 = dataclasses.replace(cfg, conv_dims=(16,), mess_dropout=(0.0,))
-    params1 = kgat.init_params(jax.random.key(4), meta.n_nodes,
-                               meta.n_relations, cfg1)
-    cfg_ref = dataclasses.replace(cfg1, ops_backend="ref")
-    att_s = jax.jit(
-        lambda p: kgat.compute_attention(p, g, cfg_ref))(params1)
-    emb_s = jax.jit(
-        lambda p, a: kgat.propagate(p, g, a, cfg_ref))(params1, att_s)
-
-    attention, propagate_eval, make_cf_step, _ = make_partitioned(
-        mesh2d, pg, info, meta, cfg1, exchange="ring", ring_buckets=rb,
-        ring_transport=transport, dp_axis="dp")
-    _, rw = attention(pg, params1)
-    emb_p = propagate_eval(rw, params1)
-    np.testing.assert_allclose(np.asarray(emb_p), np.asarray(emb_s),
-                               rtol=1e-4, atol=1e-4)
-
-    # One grad-bearing step: the cotangent rides the reverse-direction
-    # DMA; grads psum over BOTH mesh axes.
-    opt = optax.adam(1e-3)
-    B = 16
-    u = jnp.arange(B, dtype=jnp.int32) % meta.n_users
-    ip = jnp.arange(B, dtype=jnp.int32) % meta.n_items
-    ineg = (jnp.arange(B, dtype=jnp.int32) + 3) % meta.n_items
-    w = jnp.ones(B)
-    step = make_cf_step(opt)
-    p_p, _, loss_p = step(jax.tree.map(jnp.copy, params1),
-                          opt.init(params1), rw, u, ip, ineg, w,
-                          jax.random.key(9))
-    jax.block_until_ready((p_p, loss_p))
-    assert np.isfinite(float(loss_p))
-    assert np.isfinite(np.asarray(p_p["entity_embed"])).all()
-
-
 def test_partitioned_bf16_streams_match_f32(setup):
     """compute_dtype=bf16 partitioned execution (the production config):
-    the SpMM value AND cotangent streams run bf16 (halo pspmm casts — r4
-    change mirroring pallas_backend._spmm_bwd) while aggregator math and
-    accumulation stay f32. Propagation must track the f32 partitioned
+    the SpMM kernel's feature AND cotangent streams run bf16 (mirroring
+    pallas_backend._spmm_bwd) while aggregator math and accumulation stay
+    f32. Propagation must track the f32 partitioned
     result to bf16-rounding tolerance, and a grad-bearing CF step (whose
     backward reduces a bf16-cast cotangent) must match the single-device
     bf16 pallas step."""
     ds, g, meta, coo, mesh, pg, info, cfg, params, att_ref, emb_ref = setup
-    pltpu.reset_tpu_interpret_mode_state()
     cfg16 = dataclasses.replace(cfg, compute_dtype=jnp.bfloat16)
 
     attention, propagate_eval, make_cf_step, _ = make_partitioned(
         mesh, pg, info, meta, cfg16)
     _, ew = attention(pg, params)
-    assert ew.fwd.dtype == jnp.bfloat16
+    assert ew.fwd.dtype == jnp.float32  # weights stay f32; features bf16
     emb16 = propagate_eval(ew, params)
     # bf16 value streams: ~1e-2 relative activation noise vs f32.
     np.testing.assert_allclose(np.asarray(emb16), np.asarray(emb_ref),
@@ -270,50 +209,3 @@ def test_partitioned_bf16_streams_match_f32(setup):
     assert cos > 0.97, f"update direction diverged: cos={cos}"
     np.testing.assert_allclose(np.linalg.norm(d_p), np.linalg.norm(d_s),
                                rtol=0.1)
-
-
-def test_partitioned_coalesced_matches_ref(setup):
-    """Partitioned multi-edge coalescing (allgather exchange): stacked
-    distinct-pair layouts + shard-local weight-sum staging reproduce the
-    ref result for propagate AND one grad-bearing CF step."""
-    from kgat_tpu.parallel.partition import build_coalesced_shards
-
-    ds, g, meta, coo, mesh, pg, info, cfg, params, att_ref, emb_ref = setup
-    pltpu.reset_tpu_interpret_mode_state()
-    co = build_coalesced_shards(pg, info)
-    attention, propagate_eval, make_cf_step, _ = make_partitioned(
-        mesh, pg, info, meta, cfg, coalesced=co)
-    _, ew_stack = attention(pg, params)
-    assert ew_stack.coalesced
-    emb_p = propagate_eval(ew_stack, params)
-    np.testing.assert_allclose(np.asarray(emb_p), np.asarray(emb_ref),
-                               rtol=1e-4, atol=1e-4)
-
-    # Grad-bearing step vs the single-device COALESCED pallas step.
-    opt = optax.adam(1e-3)
-    B = 16
-    u = jnp.arange(B, dtype=jnp.int32) % meta.n_users
-    ip = jnp.arange(B, dtype=jnp.int32) % meta.n_items
-    ineg = (jnp.arange(B, dtype=jnp.int32) + 3) % meta.n_items
-    w = jnp.ones(B)
-    rng = jax.random.key(9)
-    step = make_cf_step(opt)
-    p_p, _, loss_p = step(jax.tree.map(jnp.copy, params),
-                          opt.init(params), ew_stack, u, ip, ineg, w, rng)
-
-    ew_s = jax.jit(
-        lambda p: kgat.attention_for_training(p, g, cfg))(params)
-    assert ew_s.coalesced  # cfg.coalesce defaults on
-
-    @jax.jit
-    def single(params, opt_state):
-        loss, grads = jax.value_and_grad(
-            lambda p: kgat.cf_loss(p, g, ew_s, meta, u, ip, ineg, cfg,
-                                   rng=rng, train=True, weight=w))(params)
-        updates, opt_state = opt.update(grads, opt_state)
-        return optax.apply_updates(params, updates), loss
-
-    p_s, loss_s = single(jax.tree.map(jnp.copy, params), opt.init(params))
-    np.testing.assert_allclose(float(loss_p), float(loss_s), rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(p_p["entity_embed"]),
-                               np.asarray(p_s["entity_embed"]), atol=2e-5)

@@ -159,25 +159,23 @@ def test_forward_parity_vs_torch(tiny_graph, agg):
 def test_cf_grad_parity_vs_torch_autograd(tiny_graph, backend):
     """jax.grad(cf_loss) — including the spmm custom_vjp dual-op rule on
     the model path (ref AND pallas kernels) — must match torch.autograd
-    on the same batch."""
-    from jax.experimental.pallas import tpu as pltpu
-
+    on the same batch. The pallas kernel runs in the Pallas interpreter."""
     g, meta = tiny_graph
     cfg = KGATConfig(embed_dim=16, relation_dim=12, conv_dims=(16, 8),
-                     mess_dropout=(0.0, 0.0), ops_backend=backend)
+                     mess_dropout=(0.0, 0.0), ops_backend=backend,
+                     interpret=True)
     params = kgat.init_params(jax.random.key(6), meta.n_nodes,
                               meta.n_relations, cfg)
     users = np.array([0, 3, 7], np.int32)
     pos = np.array([1, 4, 9], np.int32)
     neg = np.array([2, 11, 5], np.int32)
 
-    with pltpu.force_tpu_interpret_mode():
-        att = kgat.compute_attention(params, g, cfg)
-        prepared = kgat.prepare_attention(g, jax.lax.stop_gradient(att), cfg)
-        loss, grads = jax.value_and_grad(kgat.cf_loss)(
-            params, g, prepared, meta,
-            jnp.asarray(users), jnp.asarray(pos), jnp.asarray(neg), cfg,
-            train=False)
+    att = kgat.compute_attention(params, g, cfg)
+    prepared = kgat.prepare_attention(g, jax.lax.stop_gradient(att), cfg)
+    loss, grads = jax.value_and_grad(kgat.cf_loss)(
+        params, g, prepared, meta,
+        jnp.asarray(users), jnp.asarray(pos), jnp.asarray(neg), cfg,
+        train=False)
 
     tp = _torch_params(params, requires_grad=True)
     t_loss = _torch_cf_loss(tp, g, _t(att).detach(), meta,

@@ -68,19 +68,19 @@ def test_checkpoint_resume_roundtrip(tmp_path):
 
 def test_reg_flags_and_packs():
     """--reg-cf/--reg-kg reach the model config (reference --regs parity);
-    packs_for stages exactly the pack widths the layer dims request."""
-    from kgat_tpu.ops.pallas_backend import packs_for
+    presets leave the ops backend to the platform; the SpMM kernel pads
+    each layer's feature width to the power-of-two tile it needs."""
+    from kgat_tpu.ops.pallas_backend import _feature_width
     from kgat_tpu.utils.config import parse_args
 
     cfg = parse_args(["--preset", "smoke-gcn", "--reg-cf", "3e-4",
                       "--reg-kg", "2e-5"])
     assert cfg.model.reg_cf == 3e-4 and cfg.model.reg_kg == 2e-5
-    # smoke-gcn: 1 conv layer, spmm only sees the 64-d embeddings.
-    assert packs_for(cfg.model) == (2,)
-    from kgat_tpu.models.kgat import KGATConfig
-    # default 3-layer config: spmm dims 64/64/32 -> packs {2, 4}.
-    assert packs_for(KGATConfig()) == (2, 4)
-
+    assert parse_args(["--preset", "yelp-device-sampling"]
+                      ).model.ops_backend is None
+    # default 3-layer config: spmm dims 64/64/32 need no padding.
+    assert [_feature_width(d) for d in (64, 32, 16, 128)] == [64, 32, 16, 128]
+    assert [_feature_width(d) for d in (8, 24, 100)] == [16, 32, 128]
 
 
 def test_ks_flag_reaches_eval_config():
